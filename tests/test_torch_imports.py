@@ -1,0 +1,160 @@
+"""The port's import rule, its copies of the JAX package's host tables,
+its device switch, its registry and its CLI surface."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import port_env  # noqa: F401  (fixture)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, importlib.util, pkgutil, sys
+sys.modules["jax"] = None  # any import of jax now fails
+import unicore_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(unicore_tpu_torch.__path__, "unicore_tpu_torch.")
+         if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(n for n, m in sys.modules.items() if m is not None
+             and (n in ("jax", "unicore_tpu") or n.startswith(("jax.", "unicore_tpu."))))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_unicore_tpu():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 25
+
+
+def test_host_tables_equal_jax():
+    from unicore_tpu import alphabets as ja
+    from unicore_tpu import matrices as jm
+    from unicore_tpu.align import bias as jbias
+    from unicore_tpu.models.mock import MockProstT5 as JaxMock
+    from unicore_tpu_torch import alphabets as ta
+    from unicore_tpu_torch import matrices as tm
+    from unicore_tpu_torch.align import bias as tbias
+    from unicore_tpu_torch.models.mock import MockProstT5 as PortMock
+
+    for name in ("BLOSUM62", "MAT3DI"):
+        assert np.array_equal(getattr(jm, name), getattr(tm, name)), name
+    for fn in ("get_aa_matrix", "get_3di_matrix", "get_3di_background", "default_3di_matrix"):
+        assert np.array_equal(getattr(jm, fn)(), getattr(tm, fn)()), fn
+    assert (jm.W_AA, jm.W_3DI) == (tm.W_AA, tm.W_3DI)
+    for name in ("AA_ALPHABET", "TDI_ALPHABET", "AA_FULL", "TDI_FULL"):
+        assert getattr(ja, name) == getattr(ta, name), name
+    seqs = ["MKVLAAGIWRT", "ACDEFGHIKLMNPQRSTVWYX" * 3]
+    assert JaxMock().predict(seqs) == PortMock().predict(seqs)
+    qa = np.stack([ja.encode_aa(seqs[1])[:40]] * 2).astype(np.int32)
+    qs = np.stack([ja.encode_3di(JaxMock().predict(seqs)[1])[:40]] * 2).astype(np.int32)
+    ql = np.array([40, 31])
+    saa, s3d = jm.get_aa_matrix(), jm.get_3di_matrix()
+    assert np.array_equal(jbias.composition_bias(qa, qs, ql, saa, s3d, 4.0, 6.0),
+                          tbias.composition_bias(qa, qs, ql, saa, s3d, 4.0, 6.0))
+
+
+def test_device_switch(monkeypatch):
+    from unicore_tpu_torch.runtime import device, errors
+
+    assert device.resolve("cpu") == torch.device("cpu")
+    monkeypatch.setenv(device.ENV, "cpu")
+    assert device.resolve() == torch.device("cpu")
+    monkeypatch.delenv(device.ENV)
+    if torch.cuda.is_available():
+        assert device.resolve().type == "cuda"
+    else:  # CUDA by default, and never a quiet fall back to the CPU
+        with pytest.raises(errors.UnicoreError):
+            device.resolve()
+        with pytest.raises(errors.UnicoreError):
+            device.resolve("cuda")
+
+
+def test_registry_defaults_and_overrides(port_env, monkeypatch):  # noqa: F811
+    from unicore_tpu_torch.align.engine import AlignmentEngine
+    from unicore_tpu_torch.runtime import errors, registry
+
+    assert isinstance(registry.get("foldseek")(None), AlignmentEngine)
+    for name in ("iqtree", "foldmason", "prostt5"):
+        with pytest.raises(errors.UnicoreError) as e:
+            registry.get(name)
+        assert e.value.err_code == errors.ERR_BINARY_NOT_FOUND
+    # an engines.cfg override is resolved before the default
+    (port_env / "port_engines.cfg").write_text(
+        "# test override\nfoldseek=unicore_tpu_torch.runtime.device:resolve\n")
+    registry.load_overrides()
+    from unicore_tpu_torch.runtime.device import resolve
+    assert registry.get("foldseek") is resolve
+    (port_env / "port_engines.cfg").write_text("iqtree=no_such_module:factory\n")
+    registry.load_overrides()
+    with pytest.raises(errors.UnicoreError):
+        registry.get("iqtree")
+
+
+@pytest.mark.parametrize("argv", [
+    ["tree", "db", "in", "out"],
+    ["easy-core", "in", "out", "mock", "tmp"],
+    ["search", "db", "target", "out", "tmp"],
+    ["config", "--check"],
+])
+def test_cli_unported_subcommands_exit_typed(port_env, argv):  # noqa: F811
+    from unicore_tpu_torch.cli import main
+    from unicore_tpu_torch.runtime import errors
+
+    assert main(argv + ["-v", "0"]) == errors.ERR_MODULE_NOT_IMPLEMENTED
+
+
+def test_cli_unported_createdb_options(port_env, monkeypatch):  # noqa: F811
+    from unicore_tpu_torch.cli import main
+    from unicore_tpu_torch.runtime import errors
+
+    monkeypatch.delenv("UNICORE_TPU_MOCK_PROSTT5", raising=False)
+    ind = port_env / "in.fa"
+    ind.write_text(">a\nMKVLAAGIW\n")
+    out = port_env / "db" / "proteome_db"
+    assert main(["createdb", str(ind), str(out), str(port_env), "-v", "0"]) == \
+        errors.ERR_MODULE_NOT_IMPLEMENTED
+    assert main(["createdb", str(ind), str(out), "mock", "--afdb-lookup", "x", "-v", "0"]) == \
+        errors.ERR_MODULE_NOT_IMPLEMENTED
+    assert not out.parent.exists()  # nothing written before the error
+    # UNICORE_TPU_TORCH_COUNTERS: the run's counters and kernel launches as JSON
+    monkeypatch.setenv("UNICORE_TPU_TORCH_COUNTERS", str(port_env / "counters.json"))
+    assert main(["createdb", str(ind), str(out), "mock", "-v", "0"]) == 0
+    counters = json.loads((port_env / "counters.json").read_text())
+    assert counters["kernel.sw.gapped.launches"] == 0
+    assert counters["stage.createdb.seconds"] > 0
+
+
+def test_cluster_cascade_not_yet_ported(port_env):  # noqa: F811
+    from unicore_tpu_torch.align.engine import AlignParams
+    from unicore_tpu_torch.io.seqdb import SeqDB
+    from unicore_tpu_torch.modules.cluster import cluster_db
+    from unicore_tpu_torch.runtime import errors
+
+    db = SeqDB(names=["a", "b", "c"], aa_seqs=["MKVLA"] * 3, ss_seqs=["DDDDD"] * 3)
+    with pytest.raises(errors.UnicoreError) as e:
+        cluster_db(db, AlignParams(), cascade_threshold=2)
+    assert e.value.err_code == errors.ERR_MODULE_NOT_IMPLEMENTED
+
+
+def test_stage_writes_a_torch_profiler_trace(tmp_path, monkeypatch):
+    from unicore_tpu_torch.runtime import profiling
+
+    monkeypatch.setenv("UNICORE_TPU_TORCH_TRACE_DIR", str(tmp_path / "trace"))
+    with profiling.stage("unit"):
+        torch.ones(8).sum()
+    trace = json.loads((tmp_path / "trace" / "unit.json").read_text())
+    assert trace["traceEvents"]
+    assert profiling.get_counters()["stage.unit.seconds"] > 0

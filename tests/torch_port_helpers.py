@@ -1,0 +1,72 @@
+"""Shared pieces of the PyTorch port's tests (tests/test_torch_*.py).
+
+The port keeps process-global state that xdist's `--dist loadfile` would
+otherwise carry from one test file to the next in a worker: the engine
+registry (`_FACTORIES`, `_OVERRIDES`), the engines.cfg location, the
+E-value calibration caches and the device switch.  `port_env` isolates all
+four and pins the port to the CPU: HOME moves to the test's tmp dir, so
+the port's fits (~/.cache/unicore_tpu_torch/stats) and the JAX package's
+(~/.cache/unicore_tpu/stats) both start empty.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture
+def port_env(tmp_path, monkeypatch):
+    from unicore_tpu_torch.runtime import registry
+
+    factories, overrides = dict(registry._FACTORIES), dict(registry._OVERRIDES)
+    registry.clear_overrides()
+    monkeypatch.setenv("UNICORE_TPU_TORCH_ENGINES_CFG", str(tmp_path / "port_engines.cfg"))
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    monkeypatch.setenv("UNICORE_TPU_TORCH_DEVICE", "cpu")
+    yield tmp_path
+    registry._FACTORIES.clear()
+    registry._FACTORIES.update(factories)
+    registry._OVERRIDES.clear()
+    registry._OVERRIDES.update(overrides)
+
+
+def stats_dir(port_env, package: str):
+    """The E-value cache of `package` under port_env's HOME."""
+    return port_env / "home" / ".cache" / package / "stats"
+
+
+def need_cuda() -> None:
+    """Skip the calling test where there is no card (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+
+
+def random_pairs(rng, B, Lq, Lt, minlen=10, plant=40):
+    """Random AA/3Di code pairs with ragged lengths; every other pair gets
+    a planted homologous window with a few substitutions and one indel on
+    each side, so the gap states are exercised."""
+    qa = rng.randint(0, 20, (B, Lq)).astype(np.int32)
+    qs = rng.randint(0, 20, (B, Lq)).astype(np.int32)
+    ta = rng.randint(0, 20, (B, Lt)).astype(np.int32)
+    ts = rng.randint(0, 20, (B, Lt)).astype(np.int32)
+    qlen = rng.randint(minlen, Lq + 1, B).astype(np.int32)
+    tlen = rng.randint(minlen, Lt + 1, B).astype(np.int32)
+    for b in range(0, B, 2):
+        w = min(qlen[b], tlen[b], plant)
+        src_a, src_s = ta[b, :w].copy(), ts[b, :w].copy()
+        cut = w // 2
+        # a 3-residue deletion in the query copy, and substitutions
+        qa_w = np.concatenate([src_a[:cut], src_a[cut + 3:]])
+        qs_w = np.concatenate([src_s[:cut], src_s[cut + 3:]])
+        sub = rng.randint(0, len(qa_w), max(1, len(qa_w) // 10))
+        qa_w[sub] = rng.randint(0, 20, len(sub))
+        qa[b, : len(qa_w)] = qa_w
+        qs[b, : len(qs_w)] = qs_w
+    return qa, qs, ta, ts, qlen, tlen
+
+
+def as_torch(*arrays):
+    return tuple(None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+                 for a in arrays)

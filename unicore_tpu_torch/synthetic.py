@@ -1,0 +1,134 @@
+"""Synthetic proteomes with known gene families, for smoke runs and profiling.
+
+`write_proteomes` evolves gene families along a random species tree with
+substitutions and indels, drops some families from some species and
+duplicates others (so core and non-core genes both occur), fills every
+proteome up to a fixed size with species-specific orphan genes, and
+writes one FASTA per species.  Lengths follow a bacterial-like lognormal
+(median 300, clipped to 50-2,000), so a few percent take the banded path.
+Everything comes from one numpy seed.  `cluster_purity` scores a
+`cluster` run against the generating families.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+
+LETTERS = "ARNDCQEGHILKMFPSTWYV"
+
+
+def random_tree(rng, species, depth):
+    """Random rooted binary tree as a list of (parent, child, length);
+    node ids 0..n-1 are the leaves, the last id is the root."""
+    nodes = list(range(len(species)))
+    edges, nxt = [], len(species)
+    while len(nodes) > 1:
+        a, b = rng.choice(len(nodes), 2, replace=False)
+        na, nb = nodes[a], nodes[b]
+        for ch in (na, nb):
+            edges.append((nxt, ch, float(rng.uniform(0.3, 1.0))))
+        nodes = [n for i, n in enumerate(nodes) if i not in (a, b)] + [nxt]
+        nxt += 1
+    # scale so the mean root-to-leaf path is `depth` substitutions per site
+    parent = {c: (p, l) for p, c, l in edges}
+
+    def path(n):
+        s = 0.0
+        while n in parent:
+            p, l = parent[n]
+            s, n = s + l, p
+        return s
+
+    scale = depth / np.mean([path(i) for i in range(len(species))])
+    return [(p, c, l * scale) for p, c, l in edges], nxt - 1
+
+
+def mutate(rng, seq, dist):
+    """Copy of `seq` after `dist` substitutions per site (uniform over the
+    20 letters) and about dist * 0.05 indels per site."""
+    seq = seq.copy()
+    n_sub = rng.poisson(dist * len(seq))
+    pos = rng.randint(0, len(seq), n_sub)
+    seq[pos] = rng.randint(0, 20, n_sub)
+    for _ in range(rng.poisson(dist * 0.05 * len(seq))):  # indels, mean length 3
+        k = rng.geometric(0.4)
+        cut = rng.randint(1, max(2, len(seq) - 1))
+        if rng.rand() < 0.5 and len(seq) > 60:
+            seq = np.delete(seq, slice(cut, cut + k))
+        else:
+            seq = np.insert(seq, cut, rng.randint(0, 20, k))
+    return seq
+
+
+def write_proteomes(out_dir, n_species, per_species, seed, long_family=False):
+    """Write `n_species` FASTAs of `per_species` proteins into `out_dir`;
+    returns {header: family id} (orphans get unique negative ids).
+    `long_family` makes the first family 1,100 residues long."""
+    rng = np.random.RandomState(seed)
+    species = [f"sp{i:02d}" for i in range(n_species)]
+    edges, root = random_tree(rng, species, depth=0.25)
+    children = {}
+    for p, c, l in edges:
+        children.setdefault(p, []).append((c, l))
+    n_fam = int(per_species * 0.85)
+    genomes = {sp: [] for sp in species}
+    for f in range(n_fam):
+        L = int(np.clip(np.exp(rng.normal(math.log(300), 0.65)), 50, 2000))
+        if long_family and f == 0:
+            L = 1100
+        root_seq = rng.randint(0, 20, L)
+        leaves = {}
+        stack = [(root, root_seq)]
+        while stack:
+            node, seq = stack.pop()
+            if node < n_species:
+                leaves[node] = seq
+            for c, l in children.get(node, []):
+                stack.append((c, mutate(rng, seq, l)))
+        missing = set()
+        if rng.rand() < 0.3:
+            missing = set(rng.choice(n_species, rng.randint(1, 4), replace=False).tolist())
+        for i, sp in enumerate(species):
+            if i in missing:
+                continue
+            genomes[sp].append((f"{sp}_f{f:04d}_c0", f, leaves[i]))
+        if rng.rand() < 0.1:  # a paralog in one species
+            i = int(rng.randint(n_species))
+            if i not in missing:
+                genomes[species[i]].append(
+                    (f"{species[i]}_f{f:04d}_c1", f, mutate(rng, leaves[i], 0.1)))
+    labels = {}
+    os.makedirs(out_dir, exist_ok=True)
+    orphan = 0
+    for sp in species:
+        recs = genomes[sp][:per_species]
+        while len(recs) < per_species:  # species-specific orphan genes
+            L = int(np.clip(np.exp(rng.normal(math.log(300), 0.65)), 50, 2000))
+            recs.append((f"{sp}_orphan{orphan:04d}", -1 - orphan, rng.randint(0, 20, L)))
+            orphan += 1
+        order = rng.permutation(len(recs))
+        with open(os.path.join(out_dir, f"{sp}.fasta"), "w") as fh:
+            for k in order:
+                name, fam, seq = recs[k]
+                labels[name] = fam
+                fh.write(f">{name}\n{''.join(LETTERS[c] for c in seq)}\n")
+    return labels
+
+
+def cluster_purity(out_dir, labels):
+    """Share of clustered sequences whose cluster's majority family is
+    their own (sequence names map to headers through the .map file)."""
+    header = {}
+    for line in open(os.path.join(out_dir, "proteome", "proteome_db.map")):
+        name, _, hdr = line.rstrip("\n").split("\t")
+        header.setdefault(name, hdr)
+    clusters = {}
+    for line in open(os.path.join(out_dir, "cluster", "clust.tsv")):
+        rep, mem = line.split()
+        clusters.setdefault(rep, []).append(labels[header[mem]])
+    total = sum(len(m) for m in clusters.values())
+    pure = sum(max(np.unique(m, return_counts=True)[1]) for m in clusters.values())
+    return pure / total, len(clusters)
