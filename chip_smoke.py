@@ -13,9 +13,15 @@ failure, and no phase is skipped:
    gapped with gap_window 64 and 0, and ungapped; bias off, on and at
    exactly +-bias_clip_bound; gaps 100/10 and 28/3; (B, L) in (512, 128),
    (512, 256), (512, 512), (512, 1024), (192, 512) and (48, 2048), with
-   ragged lengths and planted homologies.
-3. Times per shape and mode (CUDA events, warm-up, median of repeats):
-   kernel ms and GCUPS, the plain version's ms on the card, and the bound.
+   ragged lengths and planted homologies.  Then the edges of the kernel's
+   mapping (EDGE_SHAPES, B x Lt <= 64 x 4,096, Lq != Lt): every case of
+   synthetic.sw_edge_pairs (lengths of 1, ties, a gap bonus, a bias past
+   2^24, ...) and windows 0, 1, 2, 3, 48, 64, 100, Lt, 2*Lt and ungapped,
+   half of them on each shape, alternating.
+3. Times per shape and mode (CUDA events around a run of back-to-back
+   launches, divided by their number, after a warm-up): kernel ms and
+   GCUPS, the plain version's ms on the card, the bound, and the kernel's
+   share of the bound.
    bound_ms = max(ops / peak scalar rate, bytes / memory rate), with
    ops = sum(qlen * tlen) * ops per cell, counted from the recurrence:
    gapped 14 (score 3, H0 3, F 3, E 3, H 1, best 1), ungapped 6 (score 3,
@@ -63,10 +69,17 @@ SHAPES = [(512, 128), (512, 256), (512, 512), (512, 1024), (192, 512), (48, 2048
 MODES = {"gapped_w64": dict(gap_window=64), "gapped_w0": dict(gap_window=0),
          "ungapped": dict(ungapped=True)}
 GAPS = [(100.0, 10.0), (28.0, 3.0)]
+TIMED_MODES = {"gapped": dict(gap_window=64), "ungapped": dict(ungapped=True)}  # the engine's
 OPS_PER_CELL = {"gapped": 14, "ungapped": 6}  # +1 with the bias add
 LANES_PER_SM = 128      # FP32 lanes of a Hopper SM
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_SHAPE = (512, 512)
+# (B, Lq, Lt) at the edges of the kernel's mapping: a lane, a warp of 32*C
+# columns (C = 4, 8, 16) and one past it, 2 to 8 warps per pair
+EDGE_SHAPES = [(13, 100, 1), (5, 64, 31), (13, 40, 33), (64, 80, 65), (5, 300, 129),
+               (13, 200, 257), (5, 600, 511), (13, 400, 513), (5, 700, 1025),
+               (13, 1500, 2048), (8, 500, 4096)]
+EDGE_WINDOWS = [0, 1, 2, 3, 48, 64, 100]
 # Share of clustered sequences in their family's majority cluster.  Not 1:
 # the E-value null is simulated from the published 3Di background, which
 # the mock 3Di backend does not follow, so a few chance hits between
@@ -143,21 +156,28 @@ def bytes_of(args, qc):
     return n + 2 * 21 * 21 * 4 + args[0].shape[0] * 12
 
 
-def time_cuda(fn, reps):
+def bound_of(ctx, args, qc, kind):
+    """(bound_ms, ops_ms, bytes_ms) of one launch on these inputs."""
+    ops_ms = cells_of(args) * (OPS_PER_CELL[kind] + 1) / ctx["peak_ops"] * 1e3
+    bytes_ms = bytes_of(args, qc) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms
+
+
+def time_cuda(fn, n):
+    """ms per call of `fn`: CUDA events around n back-to-back calls, after
+    two warm-up calls, so the host's work per call overlaps the device's."""
     import torch
 
     fn()
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n):
         fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
 
 
 def run_slice(in_dir, out_dir, home, device=None):
@@ -239,6 +259,7 @@ def phase_exact(ctx):
 
     from unicore_tpu_torch.ops import sw_cuda
     from unicore_tpu_torch.ops.sw import sw_forward_plain
+    from unicore_tpu_torch.synthetic import SW_EDGE_CASES, sw_edge_pairs
 
     saa, s3d = ctx["saa"], ctx["s3d"]
     max_err = {"gapped": 0.0, "ungapped": 0.0}
@@ -260,33 +281,52 @@ def phase_exact(ctx):
                               f"max |best| err {err}, qend diff {int((k[1] != p[1]).sum())}, "
                               f"tend diff {int((k[2] != p[2]).sum())}")
                     n_cmp += 1
+    dev = ctx["dev"]
+    for s, (B, Lq, Lt) in enumerate(EDGE_SHAPES):
+        modes = [dict(gap_window=w) for w in EDGE_WINDOWS + [Lt, 2 * Lt]] + [dict(ungapped=True)]
+        for n, kw in enumerate(modes):
+            if (n + s) % 2:  # half the settings per shape, the other half on the next
+                continue
+            case = SW_EDGE_CASES[(n + Lt) % len(SW_EDGE_CASES)]
+            arrays, go, ge = sw_edge_pairs(ctx["rng"], case, B, Lq, Lt)
+            t = [torch.from_numpy(x).to(dev) for x in arrays]
+            k = sw_cuda.sw_forward_cuda(*t[:6], saa, s3d, go=go, ge=ge, qc=t[6], **kw)
+            p = sw_forward_plain(*t[:6], saa, s3d, go=go, ge=ge, qc=t[6], **kw)
+            torch.cuda.synchronize()
+            kind = "ungapped" if kw.get("ungapped") else "gapped"
+            err = float((k[0] - p[0]).abs().max())
+            max_err[kind] = max(max_err[kind], err)
+            check(all(torch.equal(a, b) for a, b in zip(k, p)),
+                  f"kernel != plain at B={B} Lq={Lq} Lt={Lt} {kw} case={case}: max |best| err {err}, "
+                  f"qend diff {int((k[1] != p[1]).sum())}, tend diff {int((k[2] != p[2]).sum())}")
+            n_cmp += 1
     log(f"[phase 2] {n_cmp} kernel-vs-plain comparisons bit-exact on (best, qend, tend) "
         f"in {time.perf_counter() - t0:.1f} s")
     return max_err
 
 
-def phase_times(ctx, shapes=SHAPES, reps=10, plain_reps=2):
+def phase_times(ctx, shapes=SHAPES, reps=50, plain_reps=2):
     """Phase 3: times per shape and mode, with the engine's settings
     (gap_window 64, bias on); returns {(B, L, kind): numbers}."""
     from unicore_tpu_torch.ops import sw_cuda
     from unicore_tpu_torch.ops.sw import sw_forward_plain
 
     saa, s3d = ctx["saa"], ctx["s3d"]
-    log("[phase 3] B L mode | kernel ms GCUPS | plain ms | bound ms (ops, bytes)")
+    log("[phase 3] B L mode | kernel ms GCUPS | plain ms | bound ms (ops, bytes) | share of bound")
     timing = {}
     for B, L in shapes:
         args, qc = sw_inputs(ctx["rng"], B, L, "on", ctx["saa_np"], ctx["s3d_np"], ctx["dev"])
         cells = cells_of(args)
-        for kind, kw in (("gapped", dict(gap_window=64)), ("ungapped", dict(ungapped=True))):
+        for kind, kw in TIMED_MODES.items():
             ms = time_cuda(lambda: sw_cuda.sw_forward_cuda(*args, saa, s3d, qc=qc, **kw), reps)
             plain_ms = time_cuda(lambda: sw_forward_plain(*args, saa, s3d, qc=qc, **kw), plain_reps)
-            ops_ms = cells * (OPS_PER_CELL[kind] + 1) / ctx["peak_ops"] * 1e3
-            bytes_ms = bytes_of(args, qc) / HBM_BYTES_PER_S * 1e3
+            bound_ms, ops_ms, bytes_ms = bound_of(ctx, args, qc, kind)
             timing[(B, L, kind)] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes", gcups=cells / ms / 1e6)
-            log(f"  {B:4d} {L:5d} {kind:8s} | {ms:9.3f} {cells / ms / 1e6:7.1f} | "
-                f"{plain_ms:9.2f} | {max(ops_ms, bytes_ms):.4f} ({ops_ms:.4f}, {bytes_ms:.5f})")
+            log(f"  {B:4d} {L:5d} {kind:8s} | {ms:9.4f} {cells / ms / 1e6:7.1f} | "
+                f"{plain_ms:9.2f} | {bound_ms:.4f} ({ops_ms:.4f}, {bytes_ms:.5f}) | "
+                f"{100 * bound_ms / ms:.1f} %")
     return timing
 
 

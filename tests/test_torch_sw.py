@@ -14,10 +14,15 @@ from unicore_tpu.matrices import BLOSUM62, default_3di_matrix
 from unicore_tpu.ops import sw as jsw
 from unicore_tpu_torch.ops import sw as tsw
 from unicore_tpu_torch.ops import sw_cuda
+from unicore_tpu_torch.synthetic import SW_EDGE_CASES, sw_edge_pairs
 
 SAA = BLOSUM62.astype(np.float32)
 S3D = default_3di_matrix().astype(np.float32)
 MODES = {"w0": dict(gap_window=0), "w64": dict(gap_window=64), "ungapped": dict(ungapped=True)}
+# windows the kernel's shuffle scan finds hardest: shorter than, equal to and
+# longer than a lane's columns, not a power of two, and Lt or 2*Lt (the
+# tests below use Lt = 128)
+MODES.update({f"w{w}": dict(gap_window=w) for w in (1, 2, 3, 48, 100, 128, 256)})
 GAPS = [(100.0, 10.0), (28.0, 3.0)]
 
 
@@ -62,6 +67,17 @@ def test_plain_matches_jax_xla(mode, bias, go, ge):
     _assert_same(_jax_xla(*args, go, ge, mode), _port(*args, go, ge, mode))
 
 
+@pytest.mark.parametrize("Lq,Lt", [(40, 100), (100, 33)])
+@pytest.mark.parametrize("mode", ["w0", "w3", "w64", "ungapped"])
+@pytest.mark.parametrize("case", SW_EDGE_CASES)
+def test_plain_matches_jax_xla_on_edge_inputs(case, mode, Lq, Lt):
+    """Lq != Lt, lengths of 1, tie-heavy pairs, best cells past tlen or
+    qlen, and a bias beyond float32's exact integers."""
+    (qa, qs, ta, ts, ql, tl, qc), go, ge = sw_edge_pairs(np.random.RandomState(11), case, 7, Lq, Lt)
+    _assert_same(_jax_xla(qa, qs, ta, ts, ql, tl, qc, go, ge, mode),
+                 _port(qa, qs, ta, ts, ql, tl, qc, go, ge, mode))
+
+
 def test_build_scores_matches_jax():
     qa, qs, ta, ts, ql, tl, qc = _inputs(2, "on", B=4, Lq=40, Lt=56)
     ref = jsw.build_scores(qa, qs, ta, ts, ql, tl, SAA, S3D, qc=qc)
@@ -94,9 +110,10 @@ def test_plain_matches_pallas_interpret(mode, bias, go, ge):
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_padding_does_not_change_results(mode):
-    """The kernel skips rows >= qlen and masks columns >= tlen: each pair
-    scored alone at its exact size gives what it gives inside the padded
-    batch."""
+    """Each pair scored alone at its exact size gives what it gives inside
+    the padded batch.  This holds for a gap open >= 0 with integral scores,
+    the case here; a negative gap open can carry E or F into the padding
+    (the `gap_bonus` edge case)."""
     qa, qs, ta, ts, ql, tl, qc = _inputs(5, "on", B=6, Lq=128, Lt=128)
     full = _port(qa, qs, ta, ts, ql, tl, qc, 100.0, 10.0, mode)
     for b in range(qa.shape[0]):

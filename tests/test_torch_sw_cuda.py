@@ -19,6 +19,7 @@ from unicore_tpu_torch.matrices import get_3di_matrix, get_aa_matrix
 from unicore_tpu_torch.models.mock import MockProstT5
 from unicore_tpu_torch.ops import sw as tsw
 from unicore_tpu_torch.ops import sw_cuda
+from unicore_tpu_torch.synthetic import SW_EDGE_CASES, sw_edge_pairs
 
 SAA = get_aa_matrix().astype(np.float32)
 S3D = get_3di_matrix().astype(np.float32)
@@ -55,6 +56,38 @@ def test_kernel_matches_plain_on_cuda(mode, bias, go, ge):
         p = tsw.sw_forward_plain(*t[:8], go=go, ge=ge, qc=t[8], **MODES[mode])
         for a, b in zip(k, p):
             assert torch.equal(a, b), (B, L)
+
+
+# Target widths at the edges of the kernel's mapping: one lane, a warp of
+# 32*C columns and one column past it, 2 to 8 warps per pair, and every C
+# the kernel picks (gapped: 4 up to 128, 8 up to 256, 16 above; ungapped:
+# 4 up to 256, 8 up to 2,048, 16 above).  Lq differs from Lt in every case.
+EDGE_LT = [1, 31, 32, 33, 63, 64, 65, 128, 129, 200, 256, 257, 511, 512, 513,
+           1024, 1025, 2048, 4096]
+EDGE_WINDOWS = [0, 1, 2, 3, 48, 64, 100]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lt", EDGE_LT)
+def test_kernel_matches_plain_at_mapping_edges(Lt):
+    """Bit-exact on every case of synthetic.sw_edge_pairs, with B of 1, 5
+    or 13, every window the scan treats differently (inside a lane, across
+    lanes, across warps, Lt and 2*Lt) and the ungapped mode."""
+    need_cuda()
+    B = (1, 5, 13)[EDGE_LT.index(Lt) % 3]
+    Lq = Lt + 17 if Lt < 100 else (2 * Lt) // 3 + 1
+    dev = torch.device("cuda")
+    saa, s3d = torch.from_numpy(SAA).to(dev), torch.from_numpy(S3D).to(dev)
+    modes = [dict(gap_window=w) for w in EDGE_WINDOWS + [Lt, 2 * Lt]] + [dict(ungapped=True)]
+    for n, case in enumerate(SW_EDGE_CASES):
+        arrays, go, ge = sw_edge_pairs(np.random.RandomState(Lt * 10 + n), case, B, Lq, Lt)
+        t = [torch.from_numpy(x).to(dev) for x in arrays]
+        for kw in modes:
+            k = sw_cuda.sw_forward_cuda(*t[:6], saa, s3d, go=go, ge=ge, qc=t[6], **kw)
+            p = tsw.sw_forward_plain(*t[:6], saa, s3d, go=go, ge=ge, qc=t[6], **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(k, p):
+                assert torch.equal(a, b), (case, kw, B, Lq, Lt)
 
 
 @pytest.mark.cuda

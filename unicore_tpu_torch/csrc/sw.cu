@@ -8,37 +8,65 @@
 //
 // What bounds it on this card: operations, not bytes.  A pair reads
 // (2*Lq + 2*Lt) codes and writes 12 bytes, but its DP does about 14 scalar
-// operations on each of its Lq*Lt cells (6 for the ungapped mode), so the
-// floor is the card's scalar instruction rate.  What holds this simple design
-// below that floor is latency: the recurrence is serial along the query
-// rows, and within a row the windowed prefix max (query-gap E) is a
-// log-step scan across the columns, each step a round trip through shared
-// memory and a block barrier.
+// operations on each of its Lq*Lt cells (6 for the ungapped mode).  The
+// recurrence is serial along the query rows, and in the gapped mode each
+// row also needs a windowed prefix max across the columns (the query-gap
+// E), so what keeps a kernel from that floor is the latency of each row:
+// barriers, shared-memory round trips and dependent loads.
 //
 // What the design does about it:
-//   * one thread block per pair (blocks run in any order, nothing carries
-//     over between them); enough pairs per launch (16-512) keep several
-//     blocks resident on each of the 132 SMs, so one block's barrier
-//     stalls are hidden by another's work;
-//   * threads across the target columns, strided (column j = c*T + tid,
-//     c < C), so every shared-memory access of the scan and of the
-//     diagonal hand-over is free of bank conflicts; the query rows are a
-//     loop inside the block;
-//   * scores are built in-kernel from the codes and the two 21x21
-//     matrices held in shared memory (pre-multiplied by their weights):
-//     no (B, Lq, Lt) score tensor is ever written to device memory;
-//   * DP state (H, F, per-column best and its row) lives in registers;
-//     query rows beyond qlen are skipped, target columns beyond tlen
-//     score NEG exactly as in the plain version;
-//   * the ungapped mode (a compile-time flag) has no scan: one barrier
-//     per row, with the previous row's H double-buffered by row parity.
+//   * a warp per pair up to Lt = 32*C columns, G = ceil(Lt / (32*C)) warps
+//     above that (C = columns per lane, 4, 8 or 16 by Lt and mode, see
+//     dispatch); one block per pair, so the pair's row count is uniform in
+//     its block and every shuffle runs without a divergence check; a pair that
+//     reaches its last row leaves, and another takes its SM's place;
+//   * lane t owns the contiguous columns [t*C, t*C + C) of its warp and
+//     keeps H, F, the per-column best and its row in registers; the
+//     diagonal H[i-1][j-1] is a register, or one __shfl_up_sync from lane
+//     t-1 for the lane's first column;
+//   * the windowed prefix max runs in registers and shuffles.  A window of
+//     m = S/C lanes, 2 <= m <= 16 (every C at the engine's window of 64),
+//     takes a serial prefix and suffix in the lane, a windowed max of the
+//     lane totals across lanes, and the suffix of lane t - m fetched by
+//     one shuffle per column (van Herk/Gil-Werman in lanes).  Any other
+//     span takes the plain version's log steps d = 1, 2, 4, ... < S,
+//     inside the lane and then by whole lanes.  Max is exact, so any cover
+//     of the plain version's window gives the same bits;
+//   * a pair of G > 1 warps syncs only its own warps, once per row, with a
+//     named barrier: before it each warp publishes its total, its suffix
+//     maxima where a later warp's window reaches them, and what the next
+//     warp needs to recompute the H at its left edge (the next row's
+//     diagonal), in a buffer double-buffered by row parity; the ungapped
+//     mode publishes only its last column's H;
+//   * query row data runs ahead of the DP: a row's codes and bias are
+//     loaded two rows ahead, and its scores are built one row ahead, from
+//     the codes and the two 21x21 matrices held in shared memory
+//     (pre-multiplied by their weights), each a gather at a per-column
+//     byte offset plus the row's; so no global load and no gather waits
+//     between two rows, and the next row's score work fills the current
+//     row's scan latency.
 //
 // Arithmetic: float32 in the plain version's operation order, compiled
 // with -fmad=false so no multiply-add is contracted, which keeps every
 // result bit-identical to it (and to unicore_tpu's sw_forward_xla) for
-// any inputs.  The windowed prefix max repeats the JAX log steps
-// d = 1, 2, 4, ... < scan_limit, so E looks back across the smallest
-// power of two >= gap_window (the whole row when gap_window is 0).
+// any inputs.  The E window is the plain version's: columns
+// [j - span + 1, j] of H0 + j*ge, span = the smallest power of two
+// >= scan_limit (scan_limit = Lt when gap_window is 0, which covers the
+// whole row), NEG before column 0.  The bias add (float)((double)s + q)
+// is done as s + (float)q when |q| <= 2^24: q is then exact in float32,
+// and rounding the exact sum to float64 (53 bits >= 2*24 + 1) and then to
+// float32 gives the float32 sum rounded once (Figueroa, "When is double
+// rounding innocuous?", 1995); larger |q| keep the float64 add.
+//
+// Rows past qlen score NEG.  The ungapped mode skips them: there
+// H = max(0, H_diag + NEG) never exceeds an earlier H.  The gapped mode
+// skips them where that is exact too (exact_dp): both weighted matrices
+// hold integers, go and ge are integers >= 0, and
+// qlen * (max|aa| + max|3di| + max|qc|) + Lt*ge + go + ge < 2^24, so every
+// value on the non-negative side of the DP is an exact integer and no
+// rounding can lift an F or E above the H it comes from.  Elsewhere it
+// runs all Lq rows, as the plain version does.  Columns in [tlen, Lt)
+// score NEG but carry E and F, as in the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,8 +75,11 @@ namespace {
 
 constexpr int NA = 21;
 constexpr float NEG = -1e9f;
-constexpr int MAX_THREADS = 256;
-constexpr int MAX_C = 16;  // columns per thread: Lt <= MAX_THREADS * MAX_C
+constexpr int WARP = 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_C = 16;
+constexpr int MAX_PAIR_WARPS = 8;  // Lt <= MAX_PAIR_WARPS * WARP * MAX_C
+constexpr int MAX_LT = MAX_PAIR_WARPS * WARP * MAX_C;
 
 struct Args {
   const int* qa;
@@ -61,184 +92,443 @@ struct Args {
   const float* saa;  // (21, 21)
   const float* s3d;  // (21, 21)
   float go, ge, w_aa, w_3di;
-  int B, Lq, Lt, scan_limit;
+  int B, Lq, Lt;
+  int S;  // E window span: a power of two; >= Lt covers the whole row
+  int G;  // warps per pair
   float* best;
   int* qend;
   int* tend;
 };
 
-__device__ __forceinline__ float block_max(float v, float* red) {
+__device__ __forceinline__ void pair_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = fmaxf(v, red[w]);
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
-__device__ __forceinline__ int block_min(int v, int* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) v = min(v, red[w]);
-  return v;
+// Layout of one warp's record in a pair's row buffer (gapped mode).
+constexpr int R_TOT = 0;   // max over the warp's H0 + j*ge
+constexpr int R_H0 = 1;    // H0 of the warp's last column
+constexpr int R_PW = 2;    // in-warp windowed prefix at its second-last column
+constexpr int R_SUF = 3;   // suffix maxima, [c * 32 + lane]
+
+// Max of H0 + j*ge over columns [max(0, k), e_v) where e_v = v * W, the
+// part of a window that lies in warps before v (k < e_v); `pref` is the
+// max of the totals of warps 0 .. v-1.
+template <int C>
+__device__ __forceinline__ float incoming(const float* rp, int rec, int k, int v, float pref) {
+  constexpr int W = WARP * C;
+  if (k <= 0) return pref;
+  const int v2 = k / W, off = k - v2 * W;
+  float x = rp[v2 * rec + R_SUF + (off % C) * WARP + off / C];
+  for (int u = v2 + 1; u < v; ++u) x = fmaxf(x, rp[u * rec + R_TOT]);
+  return x;
 }
 
-template <int C, bool UNGAPPED, bool BIAS>
-__global__ void __launch_bounds__(MAX_THREADS) sw_forward_kernel(Args a) {
+// One log step of the windowed max inside the lane: P[c] = max(P[c], P[c-D]),
+// the columns left of the lane from lane - 1 (NEG left of the warp).
+template <int C, int D>
+__device__ __forceinline__ void lane_step(float (&P)[C], int lane) {
+  float from[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    const float v = __shfl_up_sync(FULL, P[C - D + c], 1);
+    from[c] = lane == 0 ? NEG : v;
+  }
+#pragma unroll
+  for (int c = C - 1; c >= D; --c) P[c] = fmaxf(P[c], P[c - D]);
+#pragma unroll
+  for (int c = 0; c < D; ++c) P[c] = fmaxf(P[c], from[c]);
+}
+
+// One block per pair, G = blockDim.x / 32 warps (MULTI: G > 1).  LANES:
+// the gap window spans 2 to 16 lanes (C < S < 32*C, every C at the
+// engine's window of 64), taken van Herk/Gil-Werman style; any other span
+// takes the plain version's log steps.
+template <int C, bool UNGAPPED, bool BIAS, bool MULTI, bool LANES>
+__global__ void __launch_bounds__(MAX_PAIR_WARPS * WARP) sw_forward_kernel(Args a) {
+  constexpr int W = WARP * C;  // columns of one warp
   extern __shared__ float smem[];
-  __shared__ float red_f[MAX_THREADS / 32];
-  __shared__ int red_i[MAX_THREADS / 32];
+  __shared__ float red_f[MAX_PAIR_WARPS];
+  __shared__ unsigned long long red_k[MAX_PAIR_WARPS];
 
-  const int T = blockDim.x;
-  const int W = T * C;  // columns held by the block, >= Lt
+  const int S = a.S, Lq = a.Lq, Lt = a.Lt;
+  const int G = MULTI ? a.G : 1;
+  const float go = a.go, ge = a.ge;
+  const int lane = threadIdx.x & (WARP - 1);
+  const int w = MULTI ? (int)(threadIdx.x / WARP) : 0;
+  const int b = blockIdx.x;
+  const int rec = UNGAPPED ? 1 : R_SUF + W;
   float* mat_aa = smem;               // w_aa * saa
   float* mat_3d = mat_aa + NA * NA;   // w_3di * s3d
-  float* hbuf = mat_3d + NA * NA;     // 2 x W: previous row's H, by row parity
-  float* sbuf = hbuf + 2 * W;         // 2 x W: ping-pong buffers of the row scan
+  float* xbuf = mat_3d + NA * NA;     // [parity][warp] records (MULTI)
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int Lq = a.Lq, Lt = a.Lt;
-  const int ql = min(a.qlen[b], Lq);
-  const int tl = min(a.tlen[b], Lt);
-  const float go = a.go, ge = a.ge;
-
-  for (int k = tid; k < NA * NA; k += T) {
+  for (int k = threadIdx.x; k < NA * NA; k += blockDim.x) {
     mat_aa[k] = a.w_aa * a.saa[k];
     mat_3d[k] = a.w_3di * a.s3d[k];
   }
-  for (int k = tid; k < 2 * W; k += T) hbuf[k] = 0.f;
+  __syncthreads();
 
-  int ca[C], cs[C], br[C];
+  const int ql = max(0, min(a.qlen[b], Lq));
+  const int tl = min(a.tlen[b], Lt);
+  const int* qa_b = a.qa + (size_t)b * Lq;
+  const int* qs_b = a.qs + (size_t)b * Lq;
+  const int* qc_b = BIAS ? a.qc + (size_t)b * Lq : nullptr;
+
+  // exact_dp (gapped): every value on the non-negative side of the DP is
+  // an exact integer below 2^24 (see the note at the top), so rows past
+  // qlen can be skipped
+  bool integral = true;
+  float amax = 0.f, smax = 0.f;
+  for (int k = lane; k < NA * NA; k += WARP) {
+    const float x = mat_aa[k], y = mat_3d[k];
+    integral = integral && x == rintf(x) && y == rintf(y);
+    amax = fmaxf(amax, fabsf(x));
+    smax = fmaxf(smax, fabsf(y));
+  }
+  double qmax = 0.0;
+  if (BIAS)
+    for (int r = lane; r < ql; r += WARP) qmax = fmax(qmax, fabs((double)qc_b[r]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, o));
+    smax = fmaxf(smax, __shfl_xor_sync(FULL, smax, o));
+    qmax = fmax(qmax, __shfl_xor_sync(FULL, qmax, o));
+  }
+  integral = __all_sync(FULL, integral);
+  const bool exact_dp = integral && go >= 0.f && ge >= 0.f && go == rintf(go) && ge == rintf(ge)
+                        && (double)ql * ((double)amax + (double)smax + qmax) + (double)Lt * ge
+                           + (double)go + (double)ge < 16777216.0;
+  // the ungapped mode skips rows past qlen always (see the note at the top)
+  const int nrows = UNGAPPED || exact_dp ? ql : Lq;
+
+  const int e_w = w * W;          // the warp's first column
+  const int j0 = e_w + lane * C;  // the lane's first column
+  const int vlim = tl - j0;       // columns c < vlim of the lane are < tlen
+  // byte offsets of each column's entries in the two matrices: a gather is
+  // this plus the row's offset (masked columns hold code 0: in bounds)
+  int oa[C], os[C], br[C];
   float h[C], f[C], bb[C], jge[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const int j = c * T + tid;
+    const int j = j0 + c;
     const bool valid = j < tl;
-    ca[c] = valid ? a.ta[(size_t)b * Lt + j] : -1;  // -1 marks a masked column
-    cs[c] = valid ? a.ts[(size_t)b * Lt + j] : 0;
+    oa[c] = (valid ? a.ta[(size_t)b * Lt + j] : 0) * 4;
+    os[c] = (valid ? a.ts[(size_t)b * Lt + j] : 0) * 4 + NA * NA * 4;
     h[c] = 0.f;
     f[c] = NEG;
     bb[c] = 0.f;
     br[c] = 0;
     jge[c] = (float)j * ge;
   }
-  __syncthreads();
+  const float jge_edge = (float)(e_w - 1) * ge;
+  float edge_h = 0.f;  // H[i-1][e_w - 1]; 0 for the first row and column
+  const char* sbase = reinterpret_cast<const char*>(smem);
 
-  const int* qa_b = a.qa + (size_t)b * Lq;
-  const int* qs_b = a.qs + (size_t)b * Lq;
-  const int* qc_b = BIAS ? a.qc + (size_t)b * Lq : nullptr;
-
-  for (int i = 0; i < ql; ++i) {
-    const float* hprev = hbuf + ((i + 1) & 1) * W;
-    float* hcur = hbuf + (i & 1) * W;
-    const float* ra = mat_aa + __ldg(qa_b + i) * NA;
-    const float* rs = mat_3d + __ldg(qs_b + i) * NA;
-    const double qci = BIAS ? (double)__ldg(qc_b + i) : 0.0;
-    float h0[C];
+  // Scores of row r: a gather at each column's byte offset plus the
+  // row's (every gather is in bounds, so the loads issue together), the
+  // bias in float32, NEG past tlen and past qlen (a select).  fix_big
+  // redoes a row whose |q| > 2^24 with the float64 add.
+  auto score = [&](int r, int ca_, int cs_, int q_, float (&out)[C]) {
+    const int ra = ca_ * (NA * 4), rs = cs_ * (NA * 4);
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = c * T + tid;
-      float s = NEG;
-      if (ca[c] >= 0) {
-        s = ra[ca[c]] + rs[cs[c]];
-        if (BIAS) s = (float)((double)s + qci);
-      }
-      const float diag = (j == 0) ? 0.f : hprev[j - 1];
-      if (UNGAPPED) {
-        const float H = fmaxf(0.f, diag + s);
-        h[c] = H;
-        if (j < Lt && H > bb[c]) { bb[c] = H; br[c] = i; }
-        hcur[j] = H;
-      } else {
-        const float Fv = fmaxf(h[c] - go, f[c] - ge);
-        f[c] = Fv;
-        const float H0 = fmaxf(0.f, fmaxf(diag + s, Fv));
-        h0[c] = H0;
-        sbuf[j] = H0 + jge[c];
-      }
+    for (int c = 0; c < C; ++c)
+      out[c] = *reinterpret_cast<const float*>(sbase + oa[c] + ra)
+               + *reinterpret_cast<const float*>(sbase + os[c] + rs);
+    if (BIAS) {
+      const float qf = (float)q_;
+#pragma unroll
+      for (int c = 0; c < C; ++c) out[c] = out[c] + qf;
     }
-    __syncthreads();
-    if (UNGAPPED) continue;
-
-    // windowed inclusive prefix max of H0[k] + k*ge, log steps as in JAX
-    float* src = sbuf;
-    float* dst = sbuf + W;
-    for (int d = 1; d < a.scan_limit; d <<= 1) {
+    const int vl = r < ql ? vlim : 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c] = c < vl ? out[c] : NEG;
+  };
+  auto fix_big = [&](int r, int ca_, int cs_, int q_, float (&out)[C]) {
+    if (BIAS && (q_ < -(1 << 24) || q_ > (1 << 24))) {
+      const int ra = ca_ * (NA * 4), rs = cs_ * (NA * 4), vl = r < ql ? vlim : 0;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const int j = c * T + tid;
-        float v = src[j];
-        if (j >= d) v = fmaxf(v, src[j - d]);
-        dst[j] = v;
+        const float x = *reinterpret_cast<const float*>(sbase + oa[c] + ra)
+                        + *reinterpret_cast<const float*>(sbase + os[c] + rs);
+        out[c] = c < vl ? (float)((double)x + (double)q_) : NEG;
       }
-      __syncthreads();
-      float* tmp = src; src = dst; dst = tmp;
     }
+  };
+  // a row's codes (clamped into the query: rows past qlen are masked)
+  auto load = [&](int r, int& ca_, int& cs_, int& q_) {
+    r = max(0, min(r, ql - 1));
+    ca_ = qa_b[r];
+    cs_ = qs_b[r];
+    if (BIAS) q_ = qc_b[r];
+  };
+  // the codes run two rows ahead of the DP and the scores one, so neither a
+  // global load nor a gather waits between two rows
+  int ca0 = 0, cs0 = 0, q0 = 0, ca1 = 0, cs1 = 0, q1 = 0;
+  load(0, ca0, cs0, q0);
+  load(1, ca1, cs1, q1);
+  float sc[C];
+  score(0, ca0, cs0, q0, sc);
+  fix_big(0, ca0, cs0, q0, sc);
+
+  for (int i = 0; i < nrows; ++i) {
+    float sn[C];
+    const int can = ca1, csn = cs1, qn = q1;
+    score(i + 1, can, csn, qn, sn);
+    load(i + 2, ca1, cs1, q1);
+    float hl = __shfl_up_sync(FULL, h[C - 1], 1);
+    if (lane == 0) hl = edge_h;
+
+    if (UNGAPPED) {
+#pragma unroll
+      for (int c = C - 1; c >= 0; --c) {
+        const float H = fmaxf(0.f, (c ? h[c - 1] : hl) + sc[c]);
+        const bool up = H > bb[c];
+        bb[c] = up ? H : bb[c];
+        br[c] = up ? i : br[c];
+        h[c] = H;
+      }
+      if (MULTI) {
+        float* r = xbuf + ((i & 1) * G + w) * rec;
+        if (lane == WARP - 1) r[0] = h[C - 1];
+        pair_sync(1, WARP * G);
+        if (w > 0) edge_h = xbuf[((i & 1) * G + w - 1) * rec];
+      }
+      fix_big(i + 1, can, csn, qn, sn);
+#pragma unroll
+      for (int c = 0; c < C; ++c) sc[c] = sn[c];
+      continue;
+    }
+
+    float H0[C], P[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const int j = c * T + tid;
-      const float pexc = (j == 0) ? NEG : src[j - 1];
-      const float E = pexc - go + ge - jge[c];
-      const float H = fmaxf(h0[c], E);
-      h[c] = H;
-      if (j < Lt && H > bb[c]) { bb[c] = H; br[c] = i; }
-      hcur[j] = H;
+      const float Fv = fmaxf(h[c] - go, f[c] - ge);
+      f[c] = Fv;
+      H0[c] = fmaxf(0.f, fmaxf((c ? h[c - 1] : hl) + sc[c], Fv));
+      P[c] = H0[c] + jge[c];
     }
-    __syncthreads();
+
+    // suffix maxima of H0 + j*ge inside the lane: for the lane scan below
+    // and for the warps to the right
+    float suf[C];
+    suf[C - 1] = P[C - 1];
+#pragma unroll
+    for (int c = C - 2; c >= 0; --c) suf[c] = fmaxf(suf[c + 1], P[c]);
+
+    // in-warp windowed inclusive prefix max over [max(e_w, j - S + 1), j]
+    if (LANES) {
+      // a window of m = S/C lanes: the lane's own prefix, the totals of
+      // lanes t-m+1 .. t-1, and the suffix of lane t-m from column c+1
+      const int m = S / C;
+#pragma unroll
+      for (int c = 1; c < C; ++c) P[c] = fmaxf(P[c - 1], P[c]);
+      float win = P[C - 1];  // becomes the max of the totals of lanes t-m/2+1 .. t
+#pragma unroll
+      for (int k = 1; k < WARP / 4; k <<= 1) {  // m <= 16
+        const float o = __shfl_up_sync(FULL, win, k);
+        if (k < (m >> 1) && lane >= k) win = fmaxf(win, o);
+      }
+      const float m1 = __shfl_up_sync(FULL, win, 1);
+      const float m2 = __shfl_up_sync(FULL, win, m >> 1);
+      float mid = lane >= 1 ? m1 : NEG;
+      if (lane >= (m >> 1)) mid = fmaxf(mid, m2);
+#pragma unroll
+      for (int c = 0; c < C - 1; ++c) {
+        const float x = __shfl_up_sync(FULL, suf[c + 1], m);
+        P[c] = fmaxf(fmaxf(P[c], mid), lane >= m ? x : NEG);
+      }
+      P[C - 1] = fmaxf(P[C - 1], mid);
+    } else {
+      // the plain version's log steps d = 1, 2, 4, ... < S: inside the lane
+      // below C columns, then by d whole lanes (d*C columns)
+      if (S > 1) lane_step<C, 1>(P, lane);
+      if (S > 2) lane_step<C, 2>(P, lane);
+      if (C > 4 && S > 4) lane_step<C, (C > 4 ? 4 : 1)>(P, lane);
+      if (C > 8 && S > 8) lane_step<C, (C > 8 ? 8 : 1)>(P, lane);
+      for (int d = 1; d * C < S && d < WARP; d <<= 1) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float v = __shfl_up_sync(FULL, P[c], d);
+          if (lane >= d) P[c] = fmaxf(P[c], v);
+        }
+      }
+    }
+
+    float* rp = xbuf + (i & 1) * G * rec;  // this row's records
+    if (MULTI) {
+      float* r = rp + w * rec;
+      if (!LANES && S >= W) {  // windows shorter than a warp never read totals
+        const float tot = warp_max(suf[0]);
+        if (lane == 0) r[R_TOT] = tot;
+      }
+      if (lane == WARP - 1) { r[R_H0] = H0[C - 1]; r[R_PW] = P[C - 2]; }
+      if (w < G - 1 && e_w + S < Lt) {
+        // suffix maxima to the warp's end, where a later warp's window
+        // (k = j - S for its columns j < Lt) starts
+        float y = suf[0];
+#pragma unroll
+        for (int k = 1; k < WARP; k <<= 1) {
+          const float o = __shfl_down_sync(FULL, y, k);
+          if (lane + k < WARP) y = fmaxf(y, o);
+        }
+        float ex = __shfl_down_sync(FULL, y, 1);
+        if (lane == WARP - 1) ex = NEG;
+        if (j0 + C - 1 + S >= e_w + W && j0 + S < Lt) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) r[R_SUF + c * WARP + lane] = fmaxf(suf[c], ex);
+        }
+      }
+      pair_sync(1, WARP * G);
+    }
+
+    // exclusive prefix: Pexc[j] = P[j - 1], with the part of the window
+    // that lies in earlier warps
+    float pe[C];
+    {
+      const float up = __shfl_up_sync(FULL, P[C - 1], 1);
+      pe[0] = lane == 0 ? NEG : up;
+#pragma unroll
+      for (int c = 1; c < C; ++c) pe[c] = P[c - 1];
+    }
+    if (MULTI && w > 0 && j0 - S < e_w) {
+      if (!LANES && S <= C) {
+        // only lane 0's first S columns look left of the warp, and
+        // only into warp w-1 (k > 0: no total is read)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int k = j0 + c - S;
+          if (k < e_w) pe[c] = fmaxf(pe[c], incoming<C>(rp, rec, k, w, NEG));
+        }
+      } else {
+        // S is a multiple of C: the lane's columns k = j0 - S + c are the
+        // C columns of one lane of an earlier warp (or all left of column 0)
+        const int k0 = j0 - S;
+        const int v2 = k0 < 0 ? -1 : k0 / W;
+        float t = NEG;  // totals of the warps between
+        for (int v = v2 + 1; v < w; ++v) t = fmaxf(t, rp[v * rec + R_TOT]);
+        if (k0 < 0) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) pe[c] = fmaxf(pe[c], t);
+        } else {
+          const float* src = rp + v2 * rec + R_SUF + (k0 - v2 * W) / C;
+#pragma unroll
+          for (int c = 0; c < C; ++c) pe[c] = fmaxf(pe[c], fmaxf(src[c * WARP], t));
+        }
+      }
+    }
+
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float E = pe[c] - go + ge - jge[c];
+      const float H = fmaxf(H0[c], E);
+      const bool up = H > bb[c];
+      bb[c] = up ? H : bb[c];
+      br[c] = up ? i : br[c];
+      h[c] = H;
+    }
+
+    if (MULTI && w > 0) {
+      // H[i][e_w - 1], the next row's diagonal at the warp's left edge,
+      // recomputed from what warp w-1 published (same operations)
+      const float* rq = rp + (w - 1) * rec;
+      float in = NEG;
+      const int k = e_w - 1 - S;
+      if (!LANES && k < e_w - W) {  // the window passes warp w-1 (S >= W)
+        float pref = NEG;
+        for (int v = 0; v < w - 1; ++v) pref = fmaxf(pref, rp[v * rec + R_TOT]);
+        in = incoming<C>(rp, rec, k, w - 1, pref);
+      }
+      const float E = fmaxf(rq[R_PW], in) - go + ge - jge_edge;
+      edge_h = fmaxf(rq[R_H0], E);
+    }
+    fix_big(i + 1, can, csn, qn, sn);
+#pragma unroll
+    for (int c = 0; c < C; ++c) sc[c] = sn[c];
   }
 
-  // best over the per-column bests, then the lowest (row * Lt + col)
-  // among the cells holding it: row-major ties, as in the plain version
+  // best over the per-column bests, then the lowest (row, col) among the
+  // cells holding it: row-major ties, as in the plain version
   float m = NEG;
 #pragma unroll
   for (int c = 0; c < C; ++c)
-    if (c * T + tid < Lt) m = fmaxf(m, bb[c]);
-  m = block_max(m, red_f);
-  int key = 0x7fffffff;
+    if (j0 + c < Lt) m = fmaxf(m, bb[c]);
+  m = warp_max(m);
+  if (MULTI) {
+    if (lane == 0) red_f[w] = m;
+    pair_sync(1, WARP * G);
+    for (int v = 0; v < G; ++v) m = fmaxf(m, red_f[v]);
+  }
+  unsigned long long key = ~0ull;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const int j = c * T + tid;
-    if (j < Lt && bb[c] >= m) key = min(key, br[c] * Lt + j);
+    const int j = j0 + c;
+    if (j < Lt && bb[c] >= m) {
+      const unsigned long long kk = (unsigned long long)br[c] << 32 | (unsigned)j;
+      key = kk < key ? kk : key;
+    }
   }
-  key = block_min(key, red_i);
-  if (tid == 0) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long x = __shfl_xor_sync(FULL, key, o);
+    key = x < key ? x : key;
+  }
+  if (MULTI) {
+    if (lane == 0) red_k[w] = key;
+    pair_sync(1, WARP * G);
+    for (int v = 0; v < G; ++v) key = red_k[v] < key ? red_k[v] : key;
+  }
+  if (w == 0 && lane == 0) {
     a.best[b] = m;
-    a.qend[b] = key / Lt;
-    a.tend[b] = key % Lt;
+    a.qend[b] = (int)(key >> 32);
+    a.tend[b] = (int)(key & 0xffffffffu);
   }
 }
 
-template <int C, bool UNGAPPED, bool BIAS>
-cudaError_t launch(const Args& a, int threads, cudaStream_t stream) {
-  const size_t smem = (2 * NA * NA + 4 * (size_t)threads * C) * sizeof(float);
-  auto kernel = sw_forward_kernel<C, UNGAPPED, BIAS>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<a.B, threads, smem, stream>>>(a);
+template <int C, bool UNGAPPED, bool BIAS, bool MULTI>
+cudaError_t launch(Args a, cudaStream_t stream) {
+  a.G = (a.Lt + WARP * C - 1) / (WARP * C);
+  const int rec = UNGAPPED ? 1 : R_SUF + WARP * C;
+  const size_t smem = (2 * NA * NA + (MULTI ? (size_t)2 * a.G * rec : 0)) * sizeof(float);
+  auto kernel = sw_forward_kernel<C, UNGAPPED, BIAS, MULTI, false>;
+  if constexpr (!UNGAPPED)
+    if (a.S > C && a.S < WARP * C) kernel = sw_forward_kernel<C, UNGAPPED, BIAS, MULTI, true>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<a.B, WARP * a.G, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_c(const Args& a, int threads, bool ungapped, cudaStream_t stream) {
-  const bool bias = a.qc != nullptr;
-  if (ungapped)
-    return bias ? launch<C, true, true>(a, threads, stream)
-                : launch<C, true, false>(a, threads, stream);
-  return bias ? launch<C, false, true>(a, threads, stream)
-              : launch<C, false, false>(a, threads, stream);
+// Columns per lane (C) by target width and mode: the fastest of 4, 8 and
+// 16 at the main path's widths (PERF.md, scripts/torch_sw_bench.py).  A
+// pair takes ceil(Lt / (32*C)) warps; only the (C, multi-warp) pairs named
+// here are compiled.
+template <bool BIAS>
+cudaError_t dispatch(const Args& a, bool ungapped, cudaStream_t st) {
+  if (ungapped) {
+    if (a.Lt <= 128) return launch<4, true, BIAS, false>(a, st);
+    if (a.Lt <= 256) return launch<4, true, BIAS, true>(a, st);
+    if (a.Lt <= 2048) return launch<8, true, BIAS, true>(a, st);
+    return launch<16, true, BIAS, true>(a, st);
+  }
+  if (a.Lt <= 128) return launch<4, false, BIAS, false>(a, st);
+  if (a.Lt <= 256) return launch<8, false, BIAS, false>(a, st);
+  if (a.Lt <= 512) return launch<16, false, BIAS, false>(a, st);
+  return launch<16, false, BIAS, true>(a, st);
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
+// The windowed prefix max spans the smallest power of two >= scan_limit
+// (the JAX log steps d = 1, 2, 4, ... < scan_limit).
 extern "C" int sw_forward_launch(
     const int* qa, const int* qs, const int* ta, const int* ts,
     const int* qlen, const int* tlen, const int* qc,
@@ -247,26 +537,16 @@ extern "C" int sw_forward_launch(
     int B, int Lq, int Lt, int scan_limit, int ungapped,
     float* best, int* qend, int* tend, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (Lq <= 0 || Lt <= 0 || Lt > MAX_THREADS * MAX_C) return (int)cudaErrorInvalidValue;
-  const int threads = Lt >= MAX_THREADS ? MAX_THREADS : ((Lt + 31) / 32) * 32;
-  const int need = (Lt + threads - 1) / threads;
-  int C = 1;
-  while (C < need) C <<= 1;
-  Args a{qa, qs, ta, ts, qlen, tlen, qc, saa, s3d, go, ge, w_aa, w_3di,
-         B, Lq, Lt, scan_limit, best, qend, tend};
+  if (Lq <= 0 || Lt <= 0 || Lt > MAX_LT) return (int)cudaErrorInvalidValue;
+  int S = 1;
+  while (S < scan_limit && S < Lt) S <<= 1;
+  const Args a{qa, qs, ta, ts, qlen, tlen, qc, saa, s3d, go, ge, w_aa, w_3di,
+               B, Lq, Lt, S, 0, best, qend, tend};
   cudaStream_t st = (cudaStream_t)stream;
-  const bool ug = ungapped != 0;
-  cudaError_t e;
-  switch (C) {
-    case 1: e = launch_c<1>(a, threads, ug, st); break;
-    case 2: e = launch_c<2>(a, threads, ug, st); break;
-    case 4: e = launch_c<4>(a, threads, ug, st); break;
-    case 8: e = launch_c<8>(a, threads, ug, st); break;
-    case 16: e = launch_c<16>(a, threads, ug, st); break;
-    default: e = cudaErrorInvalidValue;
-  }
+  const cudaError_t e = qc != nullptr ? dispatch<true>(a, ungapped != 0, st)
+                                      : dispatch<false>(a, ungapped != 0, st);
   return (int)e;
 }
 
 // Largest target width the kernel takes.
-extern "C" int sw_forward_max_lt() { return MAX_THREADS * MAX_C; }
+extern "C" int sw_forward_max_lt() { return MAX_LT; }

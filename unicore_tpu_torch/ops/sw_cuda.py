@@ -41,7 +41,7 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
-MAX_LT = 4096  # sw.cu: MAX_THREADS * MAX_C
+MAX_LT = 4096  # sw.cu: MAX_PAIR_WARPS * 32 * MAX_C
 
 LAUNCHES: Dict[str, int] = {"gapped": 0, "ungapped": 0}
 
@@ -66,9 +66,36 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME): the SW kernel cannot be built")
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libsw_{digest}.so"
+def build_library(source: Path = SOURCE, flags: Tuple[str, ...] = NVCC_FLAGS) -> Path:
+    """Compile `source` with nvcc into a shared library under BUILD_DIR,
+    named by a hash of the source and the flags; returns its path (an
+    existing build is reused)."""
+    digest = hashlib.sha256(Path(source).read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"libsw_{digest}.so"
+    if not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+        os.close(fd)
+        res = subprocess.run([_nvcc(), *flags, "-o", tmp, str(source)], capture_output=True, text=True)
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
+    return so
+
+
+def bind(so: Path) -> ctypes.CDLL:
+    """Load a library built from csrc/sw.cu and declare its C interface."""
+    lib = ctypes.CDLL(str(so))
+    lib.sw_forward_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,  # qa qs ta ts qlen tlen qc saa s3d
+        _F, _F, _F, _F,                      # go ge w_aa w_3di
+        _I, _I, _I, _I, _I,                  # B Lq Lt scan_limit ungapped
+        _P, _P, _P, _P,                      # best qend tend stream
+    ]
+    lib.sw_forward_launch.restype = ctypes.c_int
+    lib.sw_forward_max_lt.restype = ctypes.c_int
+    return lib
 
 
 def load() -> ctypes.CDLL:
@@ -77,26 +104,8 @@ def load() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        so = _library_path()
-        if not so.exists():
-            so.parent.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-            os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
-        lib = ctypes.CDLL(str(so))
-        lib.sw_forward_launch.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _P,  # qa qs ta ts qlen tlen qc saa s3d
-            _F, _F, _F, _F,                      # go ge w_aa w_3di
-            _I, _I, _I, _I, _I,                  # B Lq Lt scan_limit ungapped
-            _P, _P, _P, _P,                      # best qend tend stream
-        ]
-        lib.sw_forward_launch.restype = ctypes.c_int
-        lib.sw_forward_max_lt.restype = ctypes.c_int
+        so = build_library()
+        lib = bind(so)
         if lib.sw_forward_max_lt() != MAX_LT:
             raise RuntimeError(f"{so}: kernel takes Lt <= {lib.sw_forward_max_lt()}, "
                                f"the wrapper expects {MAX_LT}")
@@ -170,7 +179,20 @@ def sw_forward_cuda(
     if Lq < 1 or not 1 <= Lt <= MAX_LT:
         raise ValueError(f"sw_forward_cuda: needs Lq >= 1 and 1 <= Lt <= {MAX_LT}, got {Lq}, {Lt}")
 
-    lib = load()
+    out = launch_with(load(), qa, qs, ta, ts, qlen, tlen, saa, s3d, go, ge, w_aa, w_3di,
+                      gap_window, ungapped, qc)
+    if B:
+        LAUNCHES["ungapped" if ungapped else "gapped"] += 1
+    return out
+
+
+def launch_with(lib: ctypes.CDLL, qa, qs, ta, ts, qlen, tlen, saa, s3d, go, ge, w_aa, w_3di,
+                gap_window, ungapped, qc) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch `lib`'s kernel on checked CUDA tensors (sw_forward_cuda's
+    inputs) on the current stream; raises if the launch fails."""
+    B, Lq = qa.shape
+    Lt = ta.shape[1]
+    dev = qa.device
     best = torch.empty((B,), dtype=torch.float32, device=dev)
     qend = torch.empty((B,), dtype=torch.int32, device=dev)
     tend = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -187,6 +209,4 @@ def sw_forward_cuda(
         )
     if rc != 0:
         raise RuntimeError(f"sw_forward_cuda: kernel launch failed, cudaError_t {rc}")
-    if B:
-        LAUNCHES["ungapped" if ungapped else "gapped"] += 1
     return best, qend, tend

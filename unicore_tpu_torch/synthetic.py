@@ -7,7 +7,8 @@ proteome up to a fixed size with species-specific orphan genes, and
 writes one FASTA per species.  Lengths follow a bacterial-like lognormal
 (median 300, clipped to 50-2,000), so a few percent take the banded path.
 Everything comes from one numpy seed.  `cluster_purity` scores a
-`cluster` run against the generating families.
+`cluster` run against the generating families.  `sw_edge_pairs` makes
+Smith-Waterman inputs at the edges of the kernel's mapping.
 """
 
 from __future__ import annotations
@@ -132,3 +133,55 @@ def cluster_purity(out_dir, labels):
     total = sum(len(m) for m in clusters.values())
     pure = sum(max(np.unique(m, return_counts=True)[1]) for m in clusters.values())
     return pure / total, len(clusters)
+
+
+SW_EDGE_CASES = ("ragged", "full", "len1", "ties", "gap_bonus", "big_bias")
+
+
+def sw_edge_pairs(rng, case, B, Lq, Lt):
+    """SW inputs at the edges of the kernel's mapping; returns
+    ((qa, qs, ta, ts, qlen, tlen, qc), go, ge).  Any Lq, Lt >= 1.
+
+    ragged     lengths anywhere in [1, L]; every other pair's query copies
+               a window of its target with substitutions and a deletion
+    full       every row and column in use (no padding)
+    len1       qlen or tlen of 1
+    ties       one repeated code per pair: many cells hold the best score
+    gap_bonus  a negative gap open: E and F raise scores, so the best cell
+               can lie in a column >= tlen or a row >= qlen
+    big_bias   |qc| above 2**24, where the bias add must stay in float64
+    """
+    qa = rng.randint(0, 20, (B, Lq)).astype(np.int32)
+    qs = rng.randint(0, 20, (B, Lq)).astype(np.int32)
+    ta = rng.randint(0, 20, (B, Lt)).astype(np.int32)
+    ts = rng.randint(0, 20, (B, Lt)).astype(np.int32)
+    ql = rng.randint(1, Lq + 1, B).astype(np.int32)
+    tl = rng.randint(1, Lt + 1, B).astype(np.int32)
+    if case == "full":
+        ql[:], tl[:] = Lq, Lt
+    for b in range(0, B, 2):
+        w = int(min(ql[b], tl[b]))
+        src_a, src_s = ta[b, :w].copy(), ts[b, :w].copy()
+        if w > 8:
+            cut = w // 2
+            src_a = np.concatenate([src_a[:cut], src_a[cut + 2:]])
+            src_s = np.concatenate([src_s[:cut], src_s[cut + 2:]])
+        sub = rng.randint(0, len(src_a), max(1, len(src_a) // 8))
+        src_a[sub] = rng.randint(0, 20, len(sub))
+        qa[b, :len(src_a)] = src_a
+        qs[b, :len(src_s)] = src_s
+    qc = rng.randint(-60, 40, (B, Lq)).astype(np.int32)
+    go, ge = 100.0, 10.0
+    if case == "len1":
+        ql[0::2] = 1
+        tl[0::3] = 1
+    elif case == "ties":
+        for b in range(B):
+            code = rng.randint(0, 20)
+            qa[b], qs[b], ta[b], ts[b] = code, code, code, code
+        qc[:] = 0
+    elif case == "gap_bonus":
+        go, ge = -10.0, 2.0
+    elif case == "big_bias":
+        qc = rng.choice([-(1 << 25) - 3, (1 << 24) + 1, 5, -7], size=(B, Lq)).astype(np.int32)
+    return (qa, qs, ta, ts, ql, tl, qc), go, ge
