@@ -30,20 +30,33 @@ failure, and no phase is skipped:
    bytes = every input read once and every output written once, over
    3.35 TB/s (H100 SXM HBM3).  No single PyTorch call computes SW, so
    library_ms is null.
-4. The slice end to end at a real size: 8 synthetic proteomes x 480
-   proteins (3,840 sequences, under the 5,000-sequence cascade threshold),
-   gene families evolved along a random species tree with substitutions
-   and indels, some families missing or duplicated in some species,
-   lengths lognormal (median 300, clipped to 50-2,000).  `createdb mock`,
-   `cluster` and `profile` run as `python -m unicore_tpu_torch`
-   subprocesses with a fresh HOME (so the E-value calibration runs on the
-   kernel).  Prints the stage times, the pipeline counts and the kernel's
-   launches in that run; requires both modes launched and a cluster purity
-   against the generating families of at least PURITY_FLOOR.
-5. Cross-check: the same three subcommands on 3 species x 40 proteins
-   (one family longer than 1,024, the banded path) on CUDA and on the CPU
-   (UNICORE_TPU_TORCH_DEVICE=cpu), each with its own HOME; every file
-   written must be byte-identical.
+3b. The MSA's NW forward (ops/nw_device.py, PyTorch ops) on the card
+   against the same function on the CPU, bit-identical on (bits, end_i,
+   end_j, score): buckets 64, 512 and 2,048, batches of 1 and 64, gaps
+   2816/256 (random scores) and 1100/100 (all-zero or constant scores:
+   ties everywhere; not at 2,048 x 64), ragged lengths down to 1.  Then its time per dispatch at the merge pipeline's
+   full batches (64 pairs at bucket 512, 16 at 2,048), and the device's
+   busy time inside one dispatch from a torch.profiler trace; the fused
+   merge's count products (64 x 512 x 512) and the guide gram (2,048 x
+   8,192 bags), each equal to its CPU result, and their times.
+4. The main path end to end at a real size: 20 synthetic proteomes x 120
+   proteins (2,400 sequences, under the 5,000-sequence cascade
+   threshold), gene families evolved along a random species tree with
+   substitutions and indels, some families missing or duplicated in some
+   species, lengths lognormal (median 300, clipped to 50-2,000).
+   `createdb mock`, `cluster`, `profile` and `tree -n` (foldmason) run as
+   `python -m unicore_tpu_torch` subprocesses with a fresh HOME (so the
+   E-value calibration runs on the kernel).  Prints the stage times, the
+   pipeline and MSA counts and the kernel's launches in that run; requires
+   both modes launched, a cluster purity against the generating families
+   of at least PURITY_FLOOR, a filtered MSA for every core gene whose rows
+   ungapped are the gene's input sequences, and a supermatrix with one row
+   per species whose partitions tile its width.
+5. Cross-check: `easy-core -n`, then `tree -n -A mafft` and
+   `tree -n -A mafft-linsi` on its outputs, on 3 species x 40 proteins
+   (one family longer than 1,024: the banded path and the 2,048 NW
+   bucket), on CUDA and on the CPU (UNICORE_TPU_TORCH_DEVICE=cpu), each
+   with its own HOME; every file written must be byte-identical.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel mode: launches in phase 4, times and bound at (512, 512), the
@@ -84,13 +97,16 @@ EDGE_WINDOWS = [0, 1, 2, 3, 48, 64, 100]
 # the E-value null is simulated from the published 3Di background, which
 # the mock 3Di backend does not follow, so a few chance hits between
 # unrelated families pass the gate and merge clusters.  On a 489-sequence
-# subset of this data (tests/torch_purity_reading.py, on the CPU) the JAX
-# package and the port both reach 0.9939 with identical clust.tsv, and
-# 1.0 once the null's 3Di is made by the mock backend.  Chance merges per
-# sequence grow at most linearly with the number of sequences, so at
-# 3,840: 1 - 0.0061 * 3840 / 489 = 0.952.
+# subset of 8 x 480 data from write_proteomes (tests/torch_purity_reading.py,
+# on the CPU) the JAX package and the port both reach 0.9939 with identical
+# clust.tsv, and 1.0 once the null's 3Di is made by the mock backend.
+# Chance merges per sequence grow at most linearly with the number of
+# sequences: at 3,840, 1 - 0.0061 * 3840 / 489 = 0.952; at 2,400, 0.970.
 PURITY_FLOOR = 0.95
-N_SPECIES, PER_SPECIES = 8, 480
+N_SPECIES, PER_SPECIES = 20, 120
+NW_CHECKS = [(64, 1), (64, 64), (512, 1), (512, 64), (2048, 1), (2048, 64)]  # (bucket, batch)
+NW_GAPS = [(2816, 256), (1100, 100)]  # the MSA engines' 11/1 in QUANT units; another pair
+NW_TIMED = [(512, 64), (2048, 16)]  # full batches of the merge pipeline's caps
 
 
 class SmokeError(RuntimeError):
@@ -180,20 +196,14 @@ def time_cuda(fn, n):
     return s.elapsed_time(e) / n
 
 
-def run_slice(in_dir, out_dir, home, device=None):
-    """createdb -> cluster -> profile through the CLI, each a subprocess."""
+def run_steps(steps, out_dir, home, device=None):
+    """Run `python -m unicore_tpu_torch` steps [(name, argv)], each a
+    subprocess with HOME=home; returns ({name: seconds}, {name: counters})."""
     env = dict(os.environ, HOME=home, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("UNICORE_TPU_TORCH_DEVICE", None)
     if device:
         env["UNICORE_TPU_TORCH_DEVICE"] = device
-    db = os.path.join(out_dir, "proteome", "proteome_db")
-    steps = [
-        ("createdb", ["createdb", in_dir, db, "mock"]),
-        ("cluster", ["cluster", db, os.path.join(out_dir, "cluster", "clust"),
-                     os.path.join(out_dir, "tmp")]),
-        ("profile", ["profile", db, os.path.join(out_dir, "cluster", "clust.tsv"),
-                     os.path.join(out_dir, "profile")]),
-    ]
+    os.makedirs(out_dir, exist_ok=True)
     times, counters = {}, {}
     for stage, argv in steps:
         cfile = os.path.join(out_dir, f"{stage}.counters.json")
@@ -206,6 +216,67 @@ def run_slice(in_dir, out_dir, home, device=None):
             raise SmokeError(f"{stage} exited {res.returncode}:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
         counters[stage] = json.load(open(cfile))
     return times, counters
+
+
+def run_slice(in_dir, out_dir, home, device=None):
+    """createdb -> cluster -> profile -> tree -n through the CLI."""
+    db = os.path.join(out_dir, "proteome", "proteome_db")
+    steps = [
+        ("createdb", ["createdb", in_dir, db, "mock"]),
+        ("cluster", ["cluster", db, os.path.join(out_dir, "cluster", "clust"),
+                     os.path.join(out_dir, "tmp")]),
+        ("profile", ["profile", db, os.path.join(out_dir, "cluster", "clust.tsv"),
+                     os.path.join(out_dir, "profile")]),
+        ("tree", ["tree", db, os.path.join(out_dir, "profile"), os.path.join(out_dir, "tree"), "-n"]),
+    ]
+    return run_steps(steps, out_dir, home, device)
+
+
+def run_easy_core(in_dir, out_dir, home, device=None):
+    """easy-core -n, then tree -n with the two other aligners on its
+    database and core genes."""
+    db = os.path.join(out_dir, "proteome", "proteome_db")
+    prof = os.path.join(out_dir, "profile")
+    steps = [
+        ("easy-core", ["easy-core", in_dir, out_dir, "mock", os.path.join(out_dir, "tmp"), "-n"]),
+        ("tree_mafft", ["tree", db, prof, os.path.join(out_dir, "tree_mafft"), "-n", "-A", "mafft"]),
+        ("tree_linsi", ["tree", db, prof, os.path.join(out_dir, "tree_linsi"), "-n",
+                        "-A", "mafft-linsi"]),
+    ]
+    return run_steps(steps, out_dir, home, device)
+
+
+def check_tree(out_dir, n_species):
+    """The tree stage's outputs: a filtered MSA for every core gene, whose
+    rows ungapped are the gene's input sequences, and a supermatrix with
+    one row per species whose partitions tile its width.  Returns
+    (genes, supermatrix width, partitions)."""
+    from unicore_tpu_torch.io.fasta import read_fasta
+
+    tree = os.path.join(out_dir, "tree")
+    genes = sorted(n[:-4] for n in os.listdir(os.path.join(out_dir, "profile")) if n.endswith(".txt"))
+    check(len(genes) > 0, "no core genes")
+    for g in genes:
+        gdir = os.path.join(tree, "fasta", g)
+        check(os.path.isfile(os.path.join(gdir, f"{g}.fa.filtered")), f"core gene {g} has no filtered MSA")
+        msa = read_fasta(os.path.join(gdir, f"{g}_aa.fa"))
+        check(len({len(r) for r in msa.values()}) == 1, f"rows of {g}_aa.fa differ in length")
+        check({k: r.replace("-", "") for k, r in msa.items()} == read_fasta(os.path.join(gdir, "aa.fasta")),
+              f"rows of {g}_aa.fa, ungapped, are not the gene's input sequences")
+    combined = read_fasta(os.path.join(tree, "combined.fasta"))
+    widths = {len(r) for r in combined.values()}
+    check(len(widths) == 1, f"combined.fasta rows differ in length: {sorted(widths)}")
+    check(len(combined) == n_species, f"combined.fasta has {len(combined)} rows for {n_species} species")
+    width = widths.pop()
+    parts = [line.rsplit("=", 1)[1].split("-") for line in
+             open(os.path.join(tree, "combined.fasta.partitions")).read().splitlines()]
+    pos = 1
+    for a, b in parts:
+        check(int(a) == pos and int(b) >= pos - 1, f"partition {a}-{b} does not start at column {pos}")
+        pos = int(b) + 1
+    check(pos == width + 1 and len(parts) == len(genes),
+          f"{len(parts)} partitions end at column {pos - 1}; width {width}, {len(genes)} core genes")
+    return genes, width, len(parts)
 
 
 def read_files(root, skip=(".counters.json",)):
@@ -330,9 +401,97 @@ def phase_times(ctx, shapes=SHAPES, reps=50, plain_reps=2):
     return timing
 
 
+def device_busy_ms(fn):
+    """(device kernel ms, wall ms) of one call of `fn` under torch.profiler;
+    device ms is None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    us = 0.0
+    for e in prof.key_averages():
+        v = getattr(e, "self_device_time_total", None)
+        us += getattr(e, "self_cuda_time_total", 0.0) if v is None else v
+    return (us / 1e3 if us > 0 else None), wall_ms
+
+
+def phase_nw(ctx):
+    """Phase 3b: the NW forward on the card vs the CPU, bit-identical; its
+    time per dispatch at the merge pipeline's full batches.  Returns
+    {(bucket, batch): numbers}."""
+    import torch
+
+    from unicore_tpu_torch.ops.nw_device import nw_forward_bits
+    from unicore_tpu_torch.synthetic import nw_scores
+
+    t0 = time.perf_counter()
+    n_cmp = 0
+    for c, (Lb, B) in enumerate(NW_CHECKS):
+        # tie-heavy scores with the second gap pair, but not at the
+        # largest size, whose CPU side takes seconds
+        cases = list(zip(NW_GAPS, ("rand", ("zero", "const")[c % 2])))
+        for (go, ge), kind in cases[:1] if (Lb, B) == NW_CHECKS[-1] else cases:
+            S, l1, l2 = nw_scores(ctx["rng"], B, Lb, Lb - 5 * (c % 3), kind)
+            t = [torch.from_numpy(x) for x in (S, l1, l2)]
+            cpu = nw_forward_bits(*t, go, ge)
+            gpu = nw_forward_bits(*(x.to(ctx["dev"]) for x in t), go, ge)
+            for name, x, y in zip(("bits", "end_i", "end_j", "score"), cpu, gpu):
+                check(y.is_cuda and torch.equal(x, y.cpu()),
+                      f"NW forward on CUDA != CPU in {name} at bucket {Lb}, batch {B}, {kind}, go/ge {go}/{ge}")
+            n_cmp += 1
+    log(f"[phase 3b] {n_cmp} NW forward CUDA-vs-CPU comparisons bit-identical on "
+        f"(bits, end_i, end_j, score) in {time.perf_counter() - t0:.1f} s")
+    log("  bucket batch | ms per dispatch | CPU ms | device busy ms in one profiled dispatch (its wall ms)")
+    timing = {}
+    for Lb, B in NW_TIMED:
+        S, l1, l2 = nw_scores(ctx["rng"], B, Lb, Lb, "rand")
+        t = [torch.from_numpy(x) for x in (S, l1, l2)]
+        d = [x.to(ctx["dev"]) for x in t]
+        ms = time_cuda(lambda: nw_forward_bits(*d, *NW_GAPS[0]), 3)
+        c0 = time.perf_counter()
+        nw_forward_bits(*t, *NW_GAPS[0])
+        cpu_ms = (time.perf_counter() - c0) * 1e3
+        busy_ms, wall_ms = device_busy_ms(lambda: nw_forward_bits(*d, *NW_GAPS[0]))
+        timing[(Lb, B)] = dict(ms=ms, cpu_ms=cpu_ms, busy_ms=busy_ms, profiled_wall_ms=wall_ms)
+        busy = "not measured" if busy_ms is None else f"{busy_ms:.2f}"
+        log(f"  {Lb:6d} {B:5d} | {ms:10.2f} | {cpu_ms:9.2f} | {busy} ({wall_ms:.2f})")
+
+    # the other device work of the tree stage: the fused merge's count
+    # products and quantization at a full (64, 512) batch, and the guide
+    # tree's gram over 2,048 k-mer bags; each equal to its CPU result
+    from unicore_tpu_torch.msa.guide_tree import _shared_counts
+    from unicore_tpu_torch.ops.nw_device import _count_scores
+
+    B, Lb = NW_TIMED[0][1], NW_TIMED[0][0]
+    mats = []
+    for m in (ctx["saa_np"], ctx["s3d_np"]):
+        p = np.zeros((32, 32))
+        p[:21, :21] = m[:21, :21]
+        mats.append(torch.from_numpy(p))
+    counts = [torch.from_numpy(ctx["rng"].randint(0, 6, (B, Lb, 32)).astype(np.int16)) for _ in range(4)]
+    n = torch.full((B,), 5, dtype=torch.int32)
+    lens = torch.from_numpy(ctx["rng"].randint(1, Lb + 1, B).astype(np.int32))
+    args = [*counts, n, n, lens, lens.flip(0), *mats, 14, 21]
+    dargs = [x.to(ctx["dev"]) if torch.is_tensor(x) else x for x in args]
+    check(torch.equal(_count_scores(*args), _count_scores(*dargs).cpu()), "count scores on CUDA != CPU")
+    timing["counts"] = time_cuda(lambda: _count_scores(*dargs), 5)
+    feats = (ctx["rng"].rand(2048, 8192) < 0.05).astype(np.int8)
+    check(np.array_equal(_shared_counts(feats, "cpu"), _shared_counts(feats, ctx["dev"])),
+          "guide gram on CUDA != CPU")
+    timing["gram"] = time_cuda(lambda: _shared_counts(feats, ctx["dev"]), 3)
+    log(f"  count products + quantization at {B} x {Lb} x {Lb}: {timing['counts']:.3f} ms; "
+        f"guide gram of 2048 x 8192 bags (copies included): {timing['gram']:.3f} ms")
+    return timing
+
+
 def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
-    """Phase 4: createdb -> cluster -> profile at a real size; returns the
-    kernel's launches per mode in that run."""
+    """Phase 4: createdb -> cluster -> profile -> tree -n at a real size;
+    returns the kernel's launches per mode in that run."""
     from unicore_tpu_torch import synthetic
     from unicore_tpu_torch.ops import sw_cuda
 
@@ -349,48 +508,56 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
         f"{int(np.median(lengths))}, {100 * np.mean(lengths > 1024):.1f}% longer than 1024")
     out_dir = os.path.join(work, "main")
     times, counters = run_slice(in_dir, out_dir, os.path.join(work, "home_main"))
-    c = counters["cluster"]
+    c, t = counters["cluster"], counters["tree"]
     launches = {k: int(c.get(f"kernel.sw.{k}.launches", 0)) for k in ("gapped", "ungapped")}
-    core = [n for n in os.listdir(os.path.join(out_dir, "profile")) if n.endswith(".txt")]
     purity, n_clusters = synthetic.cluster_purity(out_dir, labels)
-    for stage in ("createdb", "cluster", "profile"):
+    genes, width, n_parts = check_tree(out_dir, n_species)
+    for stage in ("createdb", "cluster", "profile", "tree"):
         log(f"  {stage:8s} {times[stage]:8.2f} s")
     log(f"  sequences {int(c['cluster.sequences'])}, candidate pairs {int(c['cluster.candidate_pairs'])}, "
         f"kept by rescore {int(c['rescore.kept'])}, hits {int(c['cluster.hits'])}, "
-        f"clusters {int(c['cluster.clusters'])}, core genes {len(core)}")
+        f"clusters {int(c['cluster.clusters'])}, core genes {len(genes)}")
     log(f"  align.cells {c['align.cells']:.4g}, rescore.cells {c['rescore.cells']:.4g}, "
         f"align.seconds {c['align.seconds']:.2f}, rescore.seconds {c['rescore.seconds']:.2f}, "
         f"banded.seconds {c.get('banded.seconds', 0.0):.2f} (inside the two before), "
         f"stage.cluster.seconds {c['stage.cluster.seconds']:.2f}")
+    log(f"  tree: genes aligned {len(genes)}, msa.cells {t['msa.cells']:.4g}, "
+        f"msa.seconds {t['msa.seconds']:.2f}, msa.nw.seconds {t['msa.nw.seconds']:.2f}, "
+        f"msa.dispatches {int(t['msa.dispatches'])}, host-route merges "
+        f"{int(t.get('msa.host_route_merges', 0))}, stage.tree.seconds {t['stage.tree.seconds']:.2f}; "
+        f"supermatrix {n_species} x {width}, {n_parts} partitions")
     log(f"  kernel launches {launches}; cluster purity {purity:.4f} over {n_clusters} clusters "
         f"(floor {PURITY_FLOOR})")
     check(launches["gapped"] > 0 and launches["ungapped"] > 0,
           f"the main path did not launch both kernel modes: {launches}")
     check(purity >= PURITY_FLOOR, f"cluster purity {purity:.4f} < {PURITY_FLOOR}")
-    check(len(core) > 0, "no core genes")
+    check(t["msa.dispatches"] > 0, "the tree stage ran no NW forward")
     return launches
 
 
 def phase_crosscheck(work):
-    """Phase 5: the same subcommands on CUDA and on the CPU, byte-identical."""
+    """Phase 5: easy-core -n and the two other aligners on CUDA and on the
+    CPU, byte-identical."""
     from unicore_tpu_torch import synthetic
 
     small = os.path.join(work, "small")
     synthetic.write_proteomes(small, 3, 40, seed=11, long_family=True)
     t0 = time.perf_counter()
-    run_slice(small, os.path.join(work, "x_cuda"), os.path.join(work, "home_cuda"))
-    _, cpu_counters = run_slice(small, os.path.join(work, "x_cpu"), os.path.join(work, "home_cpu"),
-                                device="cpu")
+    run_easy_core(small, os.path.join(work, "x_cuda"), os.path.join(work, "home_cuda"))
+    _, cpu_counters = run_easy_core(small, os.path.join(work, "x_cpu"), os.path.join(work, "home_cpu"),
+                                    device="cpu")
     a, b = read_files(os.path.join(work, "x_cuda")), read_files(os.path.join(work, "x_cpu"))
     check(sorted(a) == sorted(b), f"file sets differ: {sorted(set(a) ^ set(b))}")
     diff = [n for n in sorted(a) if a[n] != b[n]]
     check(not diff, f"CUDA and CPU outputs differ: {diff}")
-    check(any(n.endswith("clust.tsv") for n in a) and any(n.endswith(".txt") for n in a),
-          "cross-check wrote no clusters or core genes")
-    check(sum(int(cpu_counters["cluster"].get(f"kernel.sw.{k}.launches", 0))
+    for want in ("cluster/clust.tsv", "tree/combined.fasta", "tree_mafft/combined.fasta",
+                 "tree_linsi/combined.fasta.partitions"):
+        check(want in a, f"cross-check wrote no {want}")
+    check(any(n.startswith("profile/") and n.endswith(".txt") for n in a), "cross-check found no core genes")
+    check(sum(int(cpu_counters["easy-core"].get(f"kernel.sw.{k}.launches", 0))
               for k in ("gapped", "ungapped")) == 0, "the CPU run launched the kernel")
-    log(f"[phase 5] CUDA and CPU runs wrote {len(a)} byte-identical files "
-        f"in {time.perf_counter() - t0:.1f} s")
+    log(f"[phase 5] CUDA and CPU runs of easy-core -n and tree -n (mafft, mafft-linsi) wrote "
+        f"{len(a)} byte-identical files in {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -404,6 +571,7 @@ def main() -> int:
     ctx = phase_env()
     max_err = phase_exact(ctx)
     timing = phase_times(ctx)
+    phase_nw(ctx)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = phase_slice(work)

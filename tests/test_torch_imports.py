@@ -36,7 +36,7 @@ def test_port_imports_without_jax_or_unicore_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 25
+    assert int(res.stdout.strip()) >= 47
 
 
 def test_host_tables_equal_jax():
@@ -87,7 +87,7 @@ def test_registry_defaults_and_overrides(port_env, monkeypatch):  # noqa: F811
     from unicore_tpu_torch.runtime import errors, registry
 
     assert isinstance(registry.get("foldseek")(None), AlignmentEngine)
-    for name in ("iqtree", "foldmason", "prostt5"):
+    for name in ("iqtree", "fasttree", "raxml-ng", "prostt5"):
         with pytest.raises(errors.UnicoreError) as e:
             registry.get(name)
         assert e.value.err_code == errors.ERR_BINARY_NOT_FOUND
@@ -101,6 +101,18 @@ def test_registry_defaults_and_overrides(port_env, monkeypatch):  # noqa: F811
     registry.load_overrides()
     with pytest.raises(errors.UnicoreError):
         registry.get("iqtree")
+
+
+@pytest.mark.parametrize("name,mode,refine", [
+    ("foldmason", "3di+aa", 0), ("mafft", "aa", 0), ("mafft-linsi", "aa", 2)])
+def test_registry_msa_engines(port_env, name, mode, refine):  # noqa: F811
+    from unicore_tpu_torch.msa.progressive import ProgressiveMSA
+    from unicore_tpu_torch.runtime import registry
+
+    eng = registry.get(name)()
+    assert isinstance(eng, ProgressiveMSA)
+    assert (eng.mode, eng.refine_iters, eng.device) == (mode, refine, torch.device("cpu"))
+    assert eng.probe()
 
 
 @pytest.mark.parametrize("argv", [

@@ -11,6 +11,8 @@ the port's fits (~/.cache/unicore_tpu_torch/stats) and the JAX package's
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -65,6 +67,50 @@ def random_pairs(rng, B, Lq, Lt, minlen=10, plant=40):
         qa[b, : len(qa_w)] = qa_w
         qs[b, : len(qs_w)] = qs_w
     return qa, qs, ta, ts, qlen, tlen
+
+
+LETTERS = "ARNDCQEGHILKMFPSTWYV"
+
+
+def _family(rng, n, L):
+    base = rng.choice(list(LETTERS), L)
+    out = []
+    for _ in range(n):
+        s = base.copy()
+        for _ in range(max(2, L // 40)):
+            s[rng.randint(L)] = rng.choice(list(LETTERS))
+        out.append("".join(s))
+    return out
+
+
+def write_proteomes(ind, seed=5):
+    """Families x species in the style of tests/test_easy_search.py: six
+    gene families over four species, one family longer than 1024 (the
+    banded path), one missing from a species and one duplicated in
+    another (non-core genes)."""
+    rng = np.random.RandomState(seed)
+    lengths = [60, 90, 130, 200, 1100, 75]
+    fams = [_family(rng, 5, L) for L in lengths]
+    species = [f"spec{i}" for i in range(4)]
+    ind.mkdir()
+    for si, sp in enumerate(species):
+        with open(ind / f"{sp}.fa", "w") as f:
+            for gi, fam in enumerate(fams):
+                if gi == 5 and si == 0:
+                    continue  # missing
+                f.write(f">gene{gi}_{sp} some description\n{fam[si]}\n")
+                if gi == 3 and si == 1:
+                    f.write(f">gene{gi}b_{sp}\n{fam[4]}\n")  # second copy
+
+
+def files_of(root):
+    """{relative path: bytes} of every file under `root`."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(d, n)
+            out[os.path.relpath(p, root)] = open(p, "rb").read()
+    return out
 
 
 def as_torch(*arrays):

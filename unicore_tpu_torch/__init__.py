@@ -20,7 +20,8 @@ Rules of the port:
   (`UNICORE_TPU_TORCH_DEVICE=cpu`, see `runtime/device.py`).
 
 Ported so far: the `createdb` (mock 3Di backend), `cluster` and
-`profile` subcommands.
+`profile` subcommands, and `tree` and `easy-core` up to the supermatrix
+(with -n/--no-inference; tree inference is not ported yet).
 """
 
 __version__ = "0.1.0"

@@ -4,8 +4,10 @@ subcommands ported so far.
 `build_parser` and `resolve` are copies of unicore_tpu's (the same
 subcommands, flags, defaults and pre-wired paths), so a command line
 means the same to both packages.  `run` dispatches `createdb`, `cluster`,
-`profile` and `version`; the other subcommands exit with the typed
-"not yet ported" error (ERR_MODULE_NOT_IMPLEMENTED).
+`profile`, `version`, and `tree` and `easy-core` with -n/--no-inference
+(up to the supermatrix); the other subcommands, and `tree` and
+`easy-core` without -n (tree inference), exit with the typed "not yet
+ported" error (ERR_MODULE_NOT_IMPLEMENTED) before anything is written.
 
 The device is chosen in runtime/device.py: CUDA, unless
 UNICORE_TPU_TORCH_DEVICE=cpu asks for the CPU.  With
@@ -295,7 +297,7 @@ def resolve(ns: argparse.Namespace) -> SimpleNamespace:
     return a
 
 
-PORTED = ("createdb", "cluster", "profile", "version")
+PORTED = ("createdb", "cluster", "profile", "tree", "easy-core", "version")
 
 
 def run(args: SimpleNamespace) -> None:
@@ -318,8 +320,12 @@ def run(args: SimpleNamespace) -> None:
         err.error(err.ERR_MODULE_NOT_IMPLEMENTED,
                   f"'{cmd}' is not yet ported to unicore_tpu_torch "
                   f"(ported: {', '.join(PORTED)})")
-    from unicore_tpu_torch.modules import cluster, createdb, profile
-    module = {"createdb": createdb, "cluster": cluster, "profile": profile}[cmd]
+    from unicore_tpu_torch.modules import cluster, createdb, profile, tree
+    from unicore_tpu_torch.workflow import easy_core
+    if cmd in ("tree", "easy-core") and not args.tree_no_inference:
+        tree.inference_not_ported(f"'{cmd}' without -n/--no-inference")
+    module = {"createdb": createdb, "cluster": cluster, "profile": profile,
+              "tree": tree, "easy-core": easy_core}[cmd]
     with profiling.stage(cmd):
         module.run(args)
 

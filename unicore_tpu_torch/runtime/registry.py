@@ -11,9 +11,10 @@ the registry maps the same names to engine factories so that
 
 Valid names mirror envs/variables.rs:79-81 plus TPU-native extras.
 
-Counterpart of unicore_tpu/runtime/registry.py.  Only `foldseek` has a
-default factory here (the port's AlignmentEngine); every other valid
-name resolves to a typed ERR_BINARY_NOT_FOUND "not yet ported" unless an
+Counterpart of unicore_tpu/runtime/registry.py.  `foldseek` (the port's
+AlignmentEngine), `foldmason`, `mafft` and `mafft-linsi` (its
+ProgressiveMSA) have default factories here; every other valid name
+resolves to a typed ERR_BINARY_NOT_FOUND "not yet ported" unless an
 override names a factory.  Overrides are read from the port's own
 engines.cfg: $UNICORE_TPU_TORCH_ENGINES_CFG, ./engines.cfg, or
 ~/.unicore_tpu_torch/engines.cfg.
@@ -29,9 +30,9 @@ from . import errors as err
 # Names kept for parity with the reference's VALID_BINARY set.
 VALID_ENGINES = (
     "foldseek",      # -> unicore_tpu_torch.align (pairwise/cluster engine)
-    "foldmason",     # not yet ported (3Di-aware progressive MSA)
-    "mafft",         # not yet ported (AA-only progressive MSA)
-    "mafft-linsi",   # not yet ported (AA-only, accurate settings)
+    "foldmason",     # -> unicore_tpu_torch.msa 3Di-aware progressive MSA
+    "mafft",         # -> unicore_tpu_torch.msa AA-only progressive MSA
+    "mafft-linsi",   # -> unicore_tpu_torch.msa AA-only, accurate settings
     "iqtree",        # not yet ported (ML engine, NNI + UFBoot-style)
     "fasttree",      # not yet ported (approximate-ML schedule)
     "raxml-ng",      # not yet ported (ML engine, raxml-style schedule)
@@ -137,7 +138,26 @@ def _register_defaults() -> None:
         from unicore_tpu_torch.align.engine import AlignmentEngine
         return AlignmentEngine(params)
 
-    _FACTORIES.setdefault("foldseek", _align_engine)
+    def _msa_engine_foldmason():
+        from unicore_tpu_torch.msa.progressive import ProgressiveMSA
+        return ProgressiveMSA(mode="3di+aa")
+
+    def _msa_engine_mafft():
+        from unicore_tpu_torch.msa.progressive import ProgressiveMSA
+        return ProgressiveMSA(mode="aa")
+
+    def _msa_engine_linsi():
+        from unicore_tpu_torch.msa.progressive import ProgressiveMSA
+        return ProgressiveMSA(mode="aa", refine_iters=2)
+
+    defaults = {
+        "foldseek": _align_engine,
+        "foldmason": _msa_engine_foldmason,
+        "mafft": _msa_engine_mafft,
+        "mafft-linsi": _msa_engine_linsi,
+    }
+    for k, v in defaults.items():
+        _FACTORIES.setdefault(k, v)
 
 
 _register_defaults()

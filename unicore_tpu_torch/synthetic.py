@@ -8,7 +8,8 @@ writes one FASTA per species.  Lengths follow a bacterial-like lognormal
 (median 300, clipped to 50-2,000), so a few percent take the banded path.
 Everything comes from one numpy seed.  `cluster_purity` scores a
 `cluster` run against the generating families.  `sw_edge_pairs` makes
-Smith-Waterman inputs at the edges of the kernel's mapping.
+Smith-Waterman inputs at the edges of the kernel's mapping, `nw_scores`
+score batches for the NW forward (ops/nw_device.py).
 """
 
 from __future__ import annotations
@@ -185,3 +186,35 @@ def sw_edge_pairs(rng, case, B, Lq, Lt):
     elif case == "big_bias":
         qc = rng.choice([-(1 << 25) - 3, (1 << 24) + 1, 5, -7], size=(B, Lq)).astype(np.int32)
     return (qa, qs, ta, ts, ql, tl, qc), go, ge
+
+
+NW_SCORE_KINDS = ("rand", "zero", "const")
+PAD_SCORE = -20000  # == ops/nw_device.PAD_SCORE
+
+
+def nw_scores(rng, B, L1, L2, kind="rand"):
+    """(S (B, L1, L2) int16, l1 (B,) int32, l2 (B,) int32) for
+    ops/nw_device.nw_forward_bits.
+
+    rand   quantized-profile-score-like values with a planted diagonal
+    zero   every cell 0: every choice of the DP is a tie
+    const  every cell -3
+
+    Lengths are ragged down to 1 (the first pair has one row, the last one
+    column, the middle one is full); cells past them hold PAD_SCORE."""
+    if kind == "zero":
+        S = np.zeros((B, L1, L2), np.int16)
+    elif kind == "const":
+        S = np.full((B, L1, L2), -3, np.int16)
+    else:
+        S = rng.randint(-600, 900, (B, L1, L2)).astype(np.int16)
+        w = min(L1, L2)
+        S[:, np.arange(w), np.arange(w)] += 1500
+    l1 = rng.randint(1, L1 + 1, B).astype(np.int32)
+    l2 = rng.randint(1, L2 + 1, B).astype(np.int32)
+    l1[0], l2[-1] = 1, 1
+    l1[B // 2], l2[B // 2] = L1, L2
+    for b in range(B):
+        S[b, l1[b]:, :] = PAD_SCORE
+        S[b, :, l2[b]:] = PAD_SCORE
+    return S, l1, l2
