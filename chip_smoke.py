@@ -39,6 +39,21 @@ failure, and no phase is skipped:
    busy time inside one dispatch from a torch.profiler trace; the fused
    merge's count products (64 x 512 x 512) and the guide gram (2,048 x
    8,192 bags), each equal to its CPU result, and their times.
+3c. The likelihood (phylo/likelihood.py, PyTorch ops) on the card against
+   the same calls on the CPU, with `torch.set_float32_matmul_precision
+   ("high")` set, so the engine's full-float32 guard is what keeps TF32
+   out: at 20 taxa x 8,192 columns (JTT+F+I+G) `loglik_batch` on a
+   64-candidate NNI batch, `site_loglik_batch` on 16 of them,
+   `loglik_nni_moves`, a 30-step `optimize_blens` and the pattern-chunked
+   path (chunks forced to 2,048 patterns; fewer candidates and steps),
+   and the incremental path at 64 taxa; the CPU side is what costs.  Tolerances as in
+   tests/test_torch_phylo.py: lnL within LL_RTOL relative, sites within
+   SITE_ATOL + SITE_RTOL |s|, after Adam lnL within BLEN_LL_RTOL and
+   each length within BLEN_ATOL + BLEN_RTOL len.  Then ms per
+   `loglik_batch` call and per Adam step, the device-busy share of Adam
+   steps from a torch.profiler trace, and the bound of one `loglik_batch`:
+   max(flops of its products at C x 20 x 20 per category and node /
+   67 TFLOP/s FP32, bytes read and written once / 3.35 TB/s).
 4. The main path end to end at a real size: 20 synthetic proteomes x 120
    proteins (2,400 sequences, under the 5,000-sequence cascade
    threshold), gene families evolved along a random species tree with
@@ -51,12 +66,31 @@ failure, and no phase is skipped:
    both modes launched, a cluster purity against the generating families
    of at least PURITY_FLOOR, a filtered MSA for every core gene whose rows
    ungapped are the gene's input sequences, and a supermatrix with one row
-   per species whose partitions tile its width.
-5. Cross-check: `easy-core -n`, then `tree -n -A mafft` and
-   `tree -n -A mafft-linsi` on its outputs, on 3 species x 40 proteins
-   (one family longer than 1,024: the banded path and the 2,048 NW
-   bucket), on CUDA and on the CPU (UNICORE_TPU_TORCH_DEVICE=cpu), each
-   with its own HOME; every file written must be byte-identical.
+   per species whose partitions tile its width.  Then `tree` again on the
+   same output directory with its defaults (iqtree, -m JTT+F+I+G -B 1000):
+   it takes the skip path and runs inference alone, timed apart.  Requires
+   iqtree.treefile with the species as leaves, a support in [0, 100] on
+   every internal split but at most one (the JAX package, and the port
+   with it, leaves the root split of the rooted search tree unlabelled
+   when both root children are internal), a finite lnL in iqtree.iqtree,
+   tree.chk "1", and
+   a normalized RF distance to the tree the proteomes evolved along
+   (synthetic.species_tree) of at most RF_FLOOR.
+5. Cross-check on 5 species x 40 proteins (one family longer than 1,024:
+   the banded path and the 2,048 NW bucket): `easy-core` with its
+   defaults, then `tree -n -A mafft` and `tree -n -A mafft-linsi` on its
+   outputs, and `tree -T fasttree` and `tree -T raxml-ng` on copies of its
+   supermatrix (the skip path), on CUDA and on the CPU
+   (UNICORE_TPU_TORCH_DEVICE=cpu), each with its own HOME.  The same
+   files, every one before inference byte-identical; the inference
+   outputs parsed: the same topology (RF 0), branch lengths within
+   BLEN_ATOL + BLEN_RTOL len, supports within SUPPORT_POINTS, lnL within
+   BLEN_LL_RTOL, every other report line equal but `seconds`.
+
+Order of the run: phase 5's CPU run starts first, on every core but two,
+and goes on beside phase 1, the checks of phases 2, 3b and 3c and phase
+5's CUDA run, which run on those two.  Once it has ended, phase 3, the
+times of phases 3b and 3c and phase 4 run with nothing beside them.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel mode: launches in phase 4, times and bound at (512, 512), the
@@ -67,13 +101,16 @@ printing any result.  Nothing here imports JAX or unicore_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -107,6 +144,16 @@ N_SPECIES, PER_SPECIES = 20, 120
 NW_CHECKS = [(64, 1), (64, 64), (512, 1), (512, 64), (2048, 1), (2048, 64)]  # (bucket, batch)
 NW_GAPS = [(2816, 256), (1100, 100)]  # the MSA engines' 11/1 in QUANT units; another pair
 NW_TIMED = [(512, 64), (2048, 16)]  # full batches of the merge pipeline's caps
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, FP32 outside the tensor cores (data sheet)
+PHYLO = dict(n=20, L=8192, batch=64, model="JTT+F+I+G", alpha=0.7, p_inv=0.05, seed=5,
+             steps=30)  # Adam steps of the CUDA-vs-CPU check
+PHYLO_INC = dict(n=64, L=2000, seed=6)  # the incremental NNI path starts at 48 taxa
+# likelihood tolerances, CUDA against the CPU (those of tests/test_torch_phylo.py)
+LL_RTOL, SITE_ATOL, SITE_RTOL = 1e-5, 1e-4, 1e-3
+BLEN_LL_RTOL, BLEN_ATOL, BLEN_RTOL = 1e-4, 1e-3, 1e-2
+SUPPORT_POINTS = 1.0
+RF_FLOOR = 0.2  # normalized RF of phase 4's tree to the generating species tree
+CROSS_SPECIES, CROSS_PER_SPECIES = 5, 40
 
 
 class SmokeError(RuntimeError):
@@ -196,24 +243,48 @@ def time_cuda(fn, n):
     return s.elapsed_time(e) / n
 
 
-def run_steps(steps, out_dir, home, device=None):
+_RUNNING = set()  # CLI subprocesses in flight, killed by stop_cli_runs()
+_RUNNING_LOCK = threading.Lock()
+_STOPPED = threading.Event()
+
+
+def stop_cli_runs():
+    """Kill every CLI subprocess in flight and start no more."""
+    with _RUNNING_LOCK:
+        _STOPPED.set()
+        for proc in _RUNNING:
+            proc.kill()
+
+
+def run_steps(steps, out_dir, home, device=None, threads=None):
     """Run `python -m unicore_tpu_torch` steps [(name, argv)], each a
-    subprocess with HOME=home; returns ({name: seconds}, {name: counters})."""
+    subprocess with HOME=home (and `threads` torch threads, if given);
+    returns ({name: seconds}, {name: counters})."""
     env = dict(os.environ, HOME=home, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("UNICORE_TPU_TORCH_DEVICE", None)
     if device:
         env["UNICORE_TPU_TORCH_DEVICE"] = device
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
     os.makedirs(out_dir, exist_ok=True)
     times, counters = {}, {}
     for stage, argv in steps:
         cfile = os.path.join(out_dir, f"{stage}.counters.json")
         env["UNICORE_TPU_TORCH_COUNTERS"] = cfile
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", "unicore_tpu_torch", *argv, "-v", "2"],
-                             cwd=ROOT, env=env, capture_output=True, text=True)
+        with _RUNNING_LOCK:
+            if _STOPPED.is_set():
+                raise SmokeError(f"{stage} not started: the run is stopping")
+            proc = subprocess.Popen([sys.executable, "-m", "unicore_tpu_torch", *argv, "-v", "2"], cwd=ROOT,
+                                    env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            _RUNNING.add(proc)
+        try:
+            out, err = proc.communicate()
+        finally:
+            _RUNNING.discard(proc)
         times[stage] = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise SmokeError(f"{stage} exited {res.returncode}:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        if proc.returncode != 0:
+            raise SmokeError(f"{stage} exited {proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
         counters[stage] = json.load(open(cfile))
     return times, counters
 
@@ -232,18 +303,33 @@ def run_slice(in_dir, out_dir, home, device=None):
     return run_steps(steps, out_dir, home, device)
 
 
-def run_easy_core(in_dir, out_dir, home, device=None):
-    """easy-core -n, then tree -n with the two other aligners on its
-    database and core genes."""
+def run_easy_core(in_dir, out_dir, home, device=None, threads=None):
+    """easy-core with its defaults, then, on its database, core genes and
+    copies of its supermatrix: tree -T raxml-ng beside tree -n with the two
+    other aligners followed by tree -T fasttree (raxml-ng's three starts
+    take as long as the three others; each side gets half the threads)."""
     db = os.path.join(out_dir, "proteome", "proteome_db")
     prof = os.path.join(out_dir, "profile")
-    steps = [
-        ("easy-core", ["easy-core", in_dir, out_dir, "mock", os.path.join(out_dir, "tmp"), "-n"]),
-        ("tree_mafft", ["tree", db, prof, os.path.join(out_dir, "tree_mafft"), "-n", "-A", "mafft"]),
-        ("tree_linsi", ["tree", db, prof, os.path.join(out_dir, "tree_linsi"), "-n",
-                        "-A", "mafft-linsi"]),
+    times, counters = run_steps(
+        [("easy-core", ["easy-core", in_dir, out_dir, "mock", os.path.join(out_dir, "tmp")])],
+        out_dir, home, device, threads)
+    for sub in ("tree_fasttree", "tree_raxml"):
+        os.makedirs(os.path.join(out_dir, sub))
+        for f in ("combined.fasta", "combined.fasta.partitions"):
+            shutil.copy(os.path.join(out_dir, "tree", f), os.path.join(out_dir, sub, f))
+    sides = [
+        [("tree_raxml", ["tree", db, prof, os.path.join(out_dir, "tree_raxml"), "-T", "raxml-ng"])],
+        [("tree_mafft", ["tree", db, prof, os.path.join(out_dir, "tree_mafft"), "-n", "-A", "mafft"]),
+         ("tree_linsi", ["tree", db, prof, os.path.join(out_dir, "tree_linsi"), "-n", "-A", "mafft-linsi"]),
+         ("tree_fasttree", ["tree", db, prof, os.path.join(out_dir, "tree_fasttree"), "-T", "fasttree"])],
     ]
-    return run_steps(steps, out_dir, home, device)
+    half = threads and max(1, threads // 2)
+    with ThreadPoolExecutor(len(sides)) as pool:
+        for side_times, side_counters in pool.map(
+                lambda steps: run_steps(steps, out_dir, home, device, half), sides):
+            times.update(side_times)
+            counters.update(side_counters)
+    return times, counters
 
 
 def check_tree(out_dir, n_species):
@@ -277,6 +363,80 @@ def check_tree(out_dir, n_species):
     check(pos == width + 1 and len(parts) == len(genes),
           f"{len(parts)} partitions end at column {pos - 1}; width {width}, {len(genes)} core genes")
     return genes, width, len(parts)
+
+
+TREE_FILES = ("iqtree.treefile", "fasttree.nwk", "raxml-ng.raxml.bestTree", "raxml-ng.raxml.support")
+REPORT_FILES = ("iqtree.iqtree", "iqtree.log")
+
+
+def tree_edges(text):
+    """{split: (length, support)} of a Newick tree, leaf edges included; a
+    split is its smaller side (ties: the sorted-first)."""
+    from unicore_tpu_torch.phylo.newick import parse_newick
+
+    tree = parse_newick(text)
+    everyone = frozenset(x.name for x in tree.leaves())
+    out = {}
+    for node in tree.postorder():
+        if node is not tree:
+            below = frozenset(x.name for x in node.leaves())
+            out[min(below, everyone - below, key=lambda s: (len(s), sorted(s)))] = (node.length, node.support)
+    return out
+
+
+def unlabelled_splits(edges):
+    """Internal splits without a support.  At most one is allowed: the JAX
+    package, and the port with it, leaves the root split of the rooted
+    search tree unlabelled when both root children are internal."""
+    return [k for k, (_, sup) in edges.items() if len(k) > 1 and sup is None]
+
+
+def check_same_tree(ref, got, what, supported):
+    """The CUDA tree `got` against the CPU tree `ref`: the same splits (RF
+    0), lengths within BLEN_ATOL + BLEN_RTOL len; with `supported`, at most
+    one unlabelled internal split in each, and every support both write
+    in [0, 100] and within SUPPORT_POINTS."""
+    from unicore_tpu_torch.phylo.newick import parse_newick, rf_distance
+
+    rf = rf_distance(parse_newick(ref), parse_newick(got))
+    a, b = tree_edges(ref), tree_edges(got)
+    check(rf == 0 and set(a) == set(b), f"{what}: RF {rf} between the CUDA and CPU trees")
+    if supported:
+        check(max(len(unlabelled_splits(a)), len(unlabelled_splits(b))) <= 1,
+              f"{what}: internal splits without a support: {unlabelled_splits(a)}, {unlabelled_splits(b)}")
+    for k in a:
+        (la, sa), (lb, sb) = a[k], b[k]
+        check(abs(lb - la) <= BLEN_ATOL + BLEN_RTOL * la, f"{what}: branch {sorted(k)} {la} vs {lb}")
+        if supported and len(k) > 1 and sa is not None and sb is not None:
+            check(0.0 <= sb <= 100.0 and abs(sb - sa) <= SUPPORT_POINTS,
+                  f"{what}: split {sorted(k)} support {sa} vs {sb}")
+
+
+def report_lines(data):
+    return dict(line.split(": ", 1) for line in data.decode().splitlines() if ": " in line)
+
+
+def check_same_files(a, b):
+    """CUDA files `b` against CPU files `a`: the same names, inference
+    outputs compared after parsing, every other file byte-identical.
+    Returns the number of inference outputs compared."""
+    check(sorted(a) == sorted(b), f"file sets differ: {sorted(set(a) ^ set(b))}")
+    n_inf = 0
+    for name in sorted(a):
+        base = os.path.basename(name)
+        if base in TREE_FILES:
+            check_same_tree(a[name].decode(), b[name].decode(), name, not base.endswith("bestTree"))
+        elif base in REPORT_FILES:
+            ra, rb = report_lines(a[name]), report_lines(b[name])
+            la, lb = float(ra.pop("lnL")), float(rb.pop("lnL"))
+            check(abs(lb - la) <= BLEN_LL_RTOL * abs(la), f"{name}: lnL {la} vs {lb}")
+            ra.pop("seconds"), rb.pop("seconds")
+            check(ra == rb, f"{name}: report lines differ: {ra} vs {rb}")
+        else:
+            check(a[name] == b[name], f"CUDA and CPU outputs differ: {name}")
+            continue
+        n_inf += 1
+    return n_inf
 
 
 def read_files(root, skip=(".counters.json",)):
@@ -421,12 +581,14 @@ def device_busy_ms(fn):
 
 
 def phase_nw(ctx):
-    """Phase 3b: the NW forward on the card vs the CPU, bit-identical; its
-    time per dispatch at the merge pipeline's full batches.  Returns
-    {(bucket, batch): numbers}."""
+    """Phase 3b, checks: the NW forward on the card vs the CPU,
+    bit-identical; the fused merge's count products at a full (64, 512)
+    batch and the guide tree's gram over 2,048 k-mer bags, each equal to
+    its CPU result.  Returns the card's inputs of phase_nw_times."""
     import torch
 
-    from unicore_tpu_torch.ops.nw_device import nw_forward_bits
+    from unicore_tpu_torch.msa.guide_tree import _shared_counts
+    from unicore_tpu_torch.ops.nw_device import _count_scores, nw_forward_bits
     from unicore_tpu_torch.synthetic import nw_scores
 
     t0 = time.perf_counter()
@@ -444,28 +606,6 @@ def phase_nw(ctx):
                 check(y.is_cuda and torch.equal(x, y.cpu()),
                       f"NW forward on CUDA != CPU in {name} at bucket {Lb}, batch {B}, {kind}, go/ge {go}/{ge}")
             n_cmp += 1
-    log(f"[phase 3b] {n_cmp} NW forward CUDA-vs-CPU comparisons bit-identical on "
-        f"(bits, end_i, end_j, score) in {time.perf_counter() - t0:.1f} s")
-    log("  bucket batch | ms per dispatch | CPU ms | device busy ms in one profiled dispatch (its wall ms)")
-    timing = {}
-    for Lb, B in NW_TIMED:
-        S, l1, l2 = nw_scores(ctx["rng"], B, Lb, Lb, "rand")
-        t = [torch.from_numpy(x) for x in (S, l1, l2)]
-        d = [x.to(ctx["dev"]) for x in t]
-        ms = time_cuda(lambda: nw_forward_bits(*d, *NW_GAPS[0]), 3)
-        c0 = time.perf_counter()
-        nw_forward_bits(*t, *NW_GAPS[0])
-        cpu_ms = (time.perf_counter() - c0) * 1e3
-        busy_ms, wall_ms = device_busy_ms(lambda: nw_forward_bits(*d, *NW_GAPS[0]))
-        timing[(Lb, B)] = dict(ms=ms, cpu_ms=cpu_ms, busy_ms=busy_ms, profiled_wall_ms=wall_ms)
-        busy = "not measured" if busy_ms is None else f"{busy_ms:.2f}"
-        log(f"  {Lb:6d} {B:5d} | {ms:10.2f} | {cpu_ms:9.2f} | {busy} ({wall_ms:.2f})")
-
-    # the other device work of the tree stage: the fused merge's count
-    # products and quantization at a full (64, 512) batch, and the guide
-    # tree's gram over 2,048 k-mer bags; each equal to its CPU result
-    from unicore_tpu_torch.msa.guide_tree import _shared_counts
-    from unicore_tpu_torch.ops.nw_device import _count_scores
 
     B, Lb = NW_TIMED[0][1], NW_TIMED[0][0]
     mats = []
@@ -479,14 +619,200 @@ def phase_nw(ctx):
     args = [*counts, n, n, lens, lens.flip(0), *mats, 14, 21]
     dargs = [x.to(ctx["dev"]) if torch.is_tensor(x) else x for x in args]
     check(torch.equal(_count_scores(*args), _count_scores(*dargs).cpu()), "count scores on CUDA != CPU")
-    timing["counts"] = time_cuda(lambda: _count_scores(*dargs), 5)
     feats = (ctx["rng"].rand(2048, 8192) < 0.05).astype(np.int8)
     check(np.array_equal(_shared_counts(feats, "cpu"), _shared_counts(feats, ctx["dev"])),
           "guide gram on CUDA != CPU")
-    timing["gram"] = time_cuda(lambda: _shared_counts(feats, ctx["dev"]), 3)
+    log(f"[phase 3b] {n_cmp} NW forward CUDA-vs-CPU comparisons bit-identical on "
+        f"(bits, end_i, end_j, score), count products and guide gram equal, in {time.perf_counter() - t0:.1f} s")
+    return dict(count_args=dargs, feats=feats)
+
+
+def phase_nw_times(ctx, inputs):
+    """Phase 3b, times: the NW forward per dispatch at the merge pipeline's
+    full batches, its CPU time and the device's busy time inside one
+    dispatch; the count products and the guide gram.  Returns
+    {(bucket, batch): numbers, "counts": ms, "gram": ms}."""
+    import torch
+
+    from unicore_tpu_torch.msa.guide_tree import _shared_counts
+    from unicore_tpu_torch.ops.nw_device import _count_scores, nw_forward_bits
+    from unicore_tpu_torch.synthetic import nw_scores
+
+    log("[phase 3b] bucket batch | ms per dispatch | CPU ms | device busy ms in one profiled dispatch (its wall ms)")
+    timing = {}
+    for Lb, B in NW_TIMED:
+        S, l1, l2 = nw_scores(ctx["rng"], B, Lb, Lb, "rand")
+        t = [torch.from_numpy(x) for x in (S, l1, l2)]
+        d = [x.to(ctx["dev"]) for x in t]
+        ms = time_cuda(lambda: nw_forward_bits(*d, *NW_GAPS[0]), 3)
+        c0 = time.perf_counter()
+        nw_forward_bits(*t, *NW_GAPS[0])
+        cpu_ms = (time.perf_counter() - c0) * 1e3
+        busy_ms, wall_ms = device_busy_ms(lambda: nw_forward_bits(*d, *NW_GAPS[0]))
+        timing[(Lb, B)] = dict(ms=ms, cpu_ms=cpu_ms, busy_ms=busy_ms, profiled_wall_ms=wall_ms)
+        busy = "not measured" if busy_ms is None else f"{busy_ms:.2f}"
+        log(f"  {Lb:6d} {B:5d} | {ms:10.2f} | {cpu_ms:9.2f} | {busy} ({wall_ms:.2f})")
+    B, Lb = NW_TIMED[0][1], NW_TIMED[0][0]
+    timing["counts"] = time_cuda(lambda: _count_scores(*inputs["count_args"]), 5)
+    timing["gram"] = time_cuda(lambda: _shared_counts(inputs["feats"], ctx["dev"]), 3)
     log(f"  count products + quantization at {B} x {Lb} x {Lb}: {timing['counts']:.3f} ms; "
         f"guide gram of 2048 x 8192 bags (copies included): {timing['gram']:.3f} ms")
     return timing
+
+
+def _rel_err(ref, got):
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    return float(np.max(np.abs(got - ref) / np.abs(ref)))
+
+
+def _site_err(ref, got):
+    """Largest |d| / (SITE_ATOL + SITE_RTOL |s|): at most 1 to pass."""
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    check(ref.shape == got.shape, f"site log-likelihood shapes {ref.shape} != {got.shape}")
+    return float(np.max(np.abs(got - ref) / (SITE_ATOL + SITE_RTOL * np.abs(ref))))
+
+
+def _phylo_pair(msa, model, alpha, p_inv, dev):
+    from unicore_tpu_torch.phylo import likelihood as tl
+    from unicore_tpu_torch.phylo import models as tm
+
+    names = list(msa)
+    seqs = [msa[k] for k in names]
+    freqs = tl.empirical_frequencies(tl.msa_to_codes(names, seqs))
+    m = tm.SubstModel.build(tm.ModelSpec.parse(model), empirical_freqs=freqs, alpha=alpha, p_inv=p_inv)
+    return tl.LikelihoodEngine(names, seqs, m, device="cpu"), tl.LikelihoodEngine(names, seqs, m, device=dev)
+
+
+def _nj_start(msa, floor):
+    from unicore_tpu_torch.phylo import likelihood as tl
+    from unicore_tpu_torch.phylo.nj import neighbor_joining, protein_distances
+
+    names = list(msa)
+    root = tl.make_root_binary(neighbor_joining(protein_distances(names, [msa[k] for k in names]), names))
+    c, b = tl.tree_to_arrays(root, names)
+    return c, np.maximum(b, floor)
+
+
+@contextlib.contextmanager
+def tf32_requested():
+    """`torch.set_float32_matmul_precision("high")` inside the block, so the
+    likelihood engine's full-float32 guard is what keeps TF32 out."""
+    import torch
+
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def phase_phylo(ctx):
+    """Phase 3c, checks: the likelihood engine on the card against the CPU
+    under TF32 matmul settings.  Returns the inputs of phase_phylo_times."""
+    import torch
+
+    from unicore_tpu_torch.phylo import likelihood as tl
+    from unicore_tpu_torch.phylo import search as ts
+    from unicore_tpu_torch.synthetic import simulate_msa
+
+    real_chunk_for = tl.pattern_chunk_for
+    with tf32_requested(), contextlib.ExitStack() as undo:
+        undo.callback(setattr, tl, "pattern_chunk_for", real_chunk_for)
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(PHYLO["seed"])
+        msa = simulate_msa(rng, PHYLO["n"], PHYLO["L"])
+        cpu, gpu = _phylo_pair(msa, PHYLO["model"], PHYLO["alpha"], PHYLO["p_inv"], ctx["dev"])
+        n, P, C = gpu.n, int(gpu.tips.shape[1]), int(gpu._mp["rates"].shape[0])
+        check(gpu.tips.device.type == torch.device(ctx["dev"]).type,
+              f"the likelihood engine's tensors are on {gpu.tips.device}")
+        c, b = _nj_start(msa, 1e-3)
+        names = gpu.names
+        root = tl.arrays_to_tree(c, b, names)
+        trees = ts.nni_neighbors(root)
+        while len(trees) < PHYLO["batch"]:  # fill the batch with random NNI walks
+            trees.append(ts.random_nni_walk(root, rng, 3))
+        arr = [tl.tree_to_arrays(x, names) for x in trees[:PHYLO["batch"]]]
+        cb, bb = np.stack([a[0] for a in arr]), np.stack([a[1] for a in arr])
+        # the CPU side takes seconds per call at this size (about 8 s for
+        # the 64 candidates, 0.25 s per Adam step), so the costlier checks
+        # run on fewer candidates and steps than the timed calls
+        err = {}
+        err["loglik_batch"] = _rel_err(cpu.loglik_batch(cb, bb), gpu.loglik_batch(cb, bb))
+        err["site_loglik_batch"] = _site_err(cpu.site_loglik_batch(cb[:16], bb[:16]),
+                                             gpu.site_loglik_batch(cb[:16], bb[:16]))
+        moves = ts.nni_moves_arrays(c, n)
+        err["loglik_nni_moves"] = _rel_err(cpu.loglik_nni_moves(c, b, moves), gpu.loglik_nni_moves(c, b, moves))
+        nb_c, ll_c = cpu.optimize_blens(c, b, steps=PHYLO["steps"])
+        nb_g, ll_g = gpu.optimize_blens(c, b, steps=PHYLO["steps"])
+        err["optimize_blens"] = _rel_err(ll_c, ll_g)
+        blen_err = float(np.max(np.abs(nb_g - nb_c) / (BLEN_ATOL + BLEN_RTOL * nb_c)))
+        tl.pattern_chunk_for = lambda n_taxa, n_cat, P, budget_bytes=8e8: 2048
+        err["chunked loglik_batch"] = _rel_err(cpu.loglik_batch(cb[:8], bb[:8]),
+                                               gpu.loglik_batch(cb[:8], bb[:8]))
+        err["chunked site_loglik_batch"] = _site_err(cpu.site_loglik_batch(cb[:4], bb[:4]),
+                                                     gpu.site_loglik_batch(cb[:4], bb[:4]))
+        err["chunked optimize_blens"] = _rel_err(cpu.optimize_blens(c, b, steps=5)[1],
+                                                 gpu.optimize_blens(c, b, steps=5)[1])
+        tl.pattern_chunk_for = real_chunk_for
+        msa64 = simulate_msa(np.random.RandomState(PHYLO_INC["seed"]), PHYLO_INC["n"], PHYLO_INC["L"])
+        cpu64, gpu64 = _phylo_pair(msa64, PHYLO["model"], PHYLO["alpha"], PHYLO["p_inv"], ctx["dev"])
+        c64, b64 = _nj_start(msa64, 0.02)
+        moves64 = ts.nni_moves_arrays(c64, PHYLO_INC["n"])
+        err[f"loglik_nni_moves at {PHYLO_INC['n']} taxa"] = _rel_err(cpu64.loglik_nni_moves(c64, b64, moves64),
+                                                       gpu64.loglik_nni_moves(c64, b64, moves64))
+        check(torch.get_float32_matmul_precision() == "high", "the engine did not restore the matmul precision")
+        for name, e in err.items():
+            lim = 1.0 if "site" in name else (BLEN_LL_RTOL if "optimize" in name else LL_RTOL)
+            check(e <= lim, f"likelihood on CUDA != CPU: {name} error {e:.3g} > {lim}")
+        check(blen_err <= 1.0, f"optimized branch lengths on CUDA != CPU: {blen_err:.3g} of the tolerance")
+        log(f"[phase 3c] likelihood CUDA vs CPU under TF32 settings at {n} taxa x {P} patterns, "
+            f"{C} categories, {len(cb)} candidates ({len(moves)} NNI moves; {len(moves64)} at "
+            f"{PHYLO_INC['n']} taxa) in {time.perf_counter() - t0:.1f} s; errors (lnL relative; "
+            f"sites and lengths as a share of their tolerance): "
+            + ", ".join(f"{k} {v:.3g}" for k, v in err.items()) + f", branch lengths {blen_err:.3g}")
+        return dict(cpu=cpu, gpu=gpu, c=c, b=b, cb=cb, bb=bb, moves=moves)
+
+
+def phase_phylo_times(ctx, st):
+    """Phase 3c, times (under TF32 settings, as the checks): ms per
+    `loglik_batch` on the card and on the CPU, per Adam step, the
+    device-busy share of Adam steps and the bound of one `loglik_batch`.
+    Returns the numbers."""
+    cpu, gpu, c, b, cb, bb, moves = (st[k] for k in ("cpu", "gpu", "c", "b", "cb", "bb", "moves"))
+    n, P, C = gpu.n, int(gpu.tips.shape[1]), int(gpu._mp["rates"].shape[0])
+    with tf32_requested():
+        lb_ms = time_cuda(lambda: gpu.loglik_batch(cb, bb), 5)
+        c0 = time.perf_counter()
+        cpu.loglik_batch(cb, bb)
+        lb_cpu_ms = (time.perf_counter() - c0) * 1e3
+        sb_ms = time_cuda(lambda: gpu.site_loglik_batch(cb, bb), 3)
+        nm_ms = time_cuda(lambda: gpu.loglik_nni_moves(c, b, moves), 3)
+        walls = {}
+        gpu.optimize_blens(c, b, steps=10)  # warm-up
+        for steps in (10, 150):
+            w0 = time.perf_counter()
+            gpu.optimize_blens(c, b, steps=steps)
+            walls[steps] = (time.perf_counter() - w0) * 1e3
+        step_ms = (walls[150] - walls[10]) / 140
+        busy_ms, prof_ms = device_busy_ms(lambda: gpu.optimize_blens(c, b, steps=10))
+        # the bound of one loglik_batch call: per candidate and internal node
+        # two products (P, C*20) x per-category (20, 20) blocks, at least
+        # C * 20 * 20 multiply-adds per pattern each; bytes: tips, weights,
+        # topologies and lengths read once, one lnL per candidate written
+        B = len(cb)
+        flops = B * (n - 1) * 2 * 2.0 * P * C * 20 * 20
+        nbytes = n * P * 20 * 4 + P * 4 + cb.size * 8 + bb.size * 4 + B * 4
+        bound_ms = max(flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        busy = "not measured" if busy_ms is None else f"{busy_ms / 10:.3f} ms of it busy ({100 * busy_ms / prof_ms:.1f} %)"
+        log(f"[phase 3c] loglik_batch ({B} candidates): {lb_ms:.2f} ms on the card, {lb_cpu_ms:.1f} ms on the CPU; "
+            f"bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP at FP32 peak, executed block-diagonally: "
+            f"x{C}; {nbytes / 1e6:.2f} MB); site_loglik_batch {sb_ms:.2f} ms; loglik_nni_moves "
+            f"({len(moves)} moves) {nm_ms:.2f} ms")
+        log(f"  optimize_blens: {walls[150]:.1f} ms for 150 Adam steps, {step_ms:.3f} ms per step; "
+            f"profiled 10-step call {prof_ms:.1f} ms, per step {busy}")
+    return dict(loglik_batch_ms=lb_ms, loglik_batch_cpu_ms=lb_cpu_ms, bound_ms=bound_ms,
+                adam_step_ms=step_ms, busy_ms=busy_ms, profiled_ms=prof_ms)
 
 
 def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
@@ -532,32 +858,124 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
           f"the main path did not launch both kernel modes: {launches}")
     check(purity >= PURITY_FLOOR, f"cluster purity {purity:.4f} < {PURITY_FLOOR}")
     check(t["msa.dispatches"] > 0, "the tree stage ran no NW forward")
+    phase_inference(work, out_dir, n_species)
     return launches
 
 
-def phase_crosscheck(work):
-    """Phase 5: easy-core -n and the two other aligners on CUDA and on the
-    CPU, byte-identical."""
+def phase_inference(work, out_dir, n_species):
+    """Phase 4, second part: `tree` with its defaults on phase 4's output
+    directory (the skip path: inference alone), and the checks of its
+    iqtree outputs."""
+    from unicore_tpu_torch import synthetic
+    from unicore_tpu_torch.phylo.newick import bipartitions, parse_newick, rf_distance
+
+    db = os.path.join(out_dir, "proteome", "proteome_db")
+    tree_dir = os.path.join(out_dir, "tree")
+    times, counters = run_steps([("tree_inference", ["tree", db, os.path.join(out_dir, "profile"), tree_dir])],
+                                out_dir, os.path.join(work, "home_main"))
+    c = counters["tree_inference"]
+    tree = parse_newick(open(os.path.join(tree_dir, "iqtree.treefile")).read())
+    species = sorted(x.name for x in tree.leaves())
+    check(species == [f"sp{i:02d}" for i in range(n_species)], f"iqtree.treefile leaves: {species}")
+    every = [nd.support for nd in bipartitions(tree).values()]
+    sup = [s for s in every if s is not None]
+    check(len(every) == n_species - 3 and len(sup) >= len(every) - 1 and all(0.0 <= s <= 100.0 for s in sup),
+          f"internal splits without a support in [0, 100] (one may have none): {every}")
+    report = report_lines(open(os.path.join(tree_dir, "iqtree.iqtree"), "rb").read())
+    lnl = float(report["lnL"])
+    check(np.isfinite(lnl), f"lnL {lnl}")
+    check(open(os.path.join(tree_dir, "tree.chk")).read() == "1", "tree.chk does not read 1")
+    rf = rf_distance(tree, synthetic.species_tree(n_species, seed=7)) / (2 * (n_species - 3))
+    log(f"  tree inference (skip path, iqtree -m JTT+F+I+G -B 1000) {times['tree_inference']:8.2f} s: "
+        f"stage.tree.inference.seconds {c['stage.tree.inference.seconds']:.2f}, phylo.seconds "
+        f"{c['phylo.seconds']:.2f}, phylo.patterns {int(c['phylo.patterns'])}, phylo.blen_steps "
+        f"{int(c['phylo.blen_steps'])}, phylo.candidates {int(c['phylo.candidates'])}; lnL {lnl:.4f}, "
+        f"alpha {report['alpha']}, p_inv {report['p_inv']}; {len(sup)} of {len(every)} splits labelled, "
+        f"supports min {min(sup):.1f} mean {np.mean(sup):.1f}; normalized RF to the generating species tree {rf:.4f} (floor {RF_FLOOR})")
+    check(rf <= RF_FLOOR, f"normalized RF {rf:.4f} to the generating species tree > {RF_FLOOR}")
+
+
+def split_cores():
+    """(foreground, background) CPU sets: two cores for the checks that
+    drive the card, the others for phase 5's CPU run beside them.  With
+    fewer than 4 cores both get every core: the run is slower, and still
+    no timed phase has anything beside it."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) < 4:
+        return set(cores), set(cores)
+    return set(cores[:2]), set(cores[2:])
+
+
+def _on_cores(cores, fn, *args):
+    """fn(*args) with the calling thread, and every process it starts,
+    pinned to `cores` (Linux affinity is per thread and inherited)."""
+    os.sched_setaffinity(0, cores)
+    return fn(*args)
+
+
+def start_crosscheck(work, pool, cores):
+    """Phase 5, first half: write its proteomes and start its CPU run in
+    `pool` on `cores`, with one torch thread per core; returns (input
+    directory, the run's future)."""
     from unicore_tpu_torch import synthetic
 
     small = os.path.join(work, "small")
-    synthetic.write_proteomes(small, 3, 40, seed=11, long_family=True)
-    t0 = time.perf_counter()
-    run_easy_core(small, os.path.join(work, "x_cuda"), os.path.join(work, "home_cuda"))
-    _, cpu_counters = run_easy_core(small, os.path.join(work, "x_cpu"), os.path.join(work, "home_cpu"),
-                                    device="cpu")
-    a, b = read_files(os.path.join(work, "x_cuda")), read_files(os.path.join(work, "x_cpu"))
-    check(sorted(a) == sorted(b), f"file sets differ: {sorted(set(a) ^ set(b))}")
-    diff = [n for n in sorted(a) if a[n] != b[n]]
-    check(not diff, f"CUDA and CPU outputs differ: {diff}")
-    for want in ("cluster/clust.tsv", "tree/combined.fasta", "tree_mafft/combined.fasta",
-                 "tree_linsi/combined.fasta.partitions"):
+    synthetic.write_proteomes(small, CROSS_SPECIES, CROSS_PER_SPECIES, seed=11, long_family=True)
+    return small, pool.submit(_on_cores, cores, run_easy_core, small, os.path.join(work, "x_cpu"),
+                              os.path.join(work, "home_cpu"), "cpu", len(cores))
+
+
+def phase_crosscheck(work, small, cpu_run, t0):
+    """Phase 5: easy-core, the two other aligners and the two other tree
+    builders on CUDA (here) and on the CPU (`cpu_run`, started at t0): the
+    same files, byte-identical up to inference, the inference outputs
+    within the stated tolerances."""
+    cuda_times, _ = run_easy_core(small, os.path.join(work, "x_cuda"), os.path.join(work, "home_cuda"))
+    cpu_times, cpu_counters = cpu_run.result()
+    a, b = read_files(os.path.join(work, "x_cpu")), read_files(os.path.join(work, "x_cuda"))
+    n_inf = check_same_files(a, b)
+    for want in ("cluster/clust.tsv", "tree/combined.fasta", "tree/iqtree.treefile", "tree_mafft/combined.fasta",
+                 "tree_linsi/combined.fasta.partitions", "tree_fasttree/fasttree.nwk",
+                 "tree_raxml/raxml-ng.raxml.support"):
         check(want in a, f"cross-check wrote no {want}")
+    check(a["tree/tree.chk"] == b"1", "easy-core's tree.chk does not read 1")
     check(any(n.startswith("profile/") and n.endswith(".txt") for n in a), "cross-check found no core genes")
     check(sum(int(cpu_counters["easy-core"].get(f"kernel.sw.{k}.launches", 0))
               for k in ("gapped", "ungapped")) == 0, "the CPU run launched the kernel")
-    log(f"[phase 5] CUDA and CPU runs of easy-core -n and tree -n (mafft, mafft-linsi) wrote "
-        f"{len(a)} byte-identical files in {time.perf_counter() - t0:.1f} s")
+    log(f"[phase 5] CUDA and CPU runs of easy-core, tree -n (mafft, mafft-linsi) and tree -T fasttree|raxml-ng "
+        f"at {CROSS_SPECIES} x {CROSS_PER_SPECIES}: {len(a)} files, {len(a) - n_inf} byte-identical, "
+        f"{n_inf} inference outputs within tolerance; {time.perf_counter() - t0:.1f} s since the CPU run "
+        f"started beside phases 1-3c")
+    log("  step      CUDA s    CPU s")
+    for k in cuda_times:
+        log(f"  {k:12s} {cuda_times[k]:7.2f} {cpu_times[k]:8.2f}")
+
+
+def checks_beside_cpu_run(work):
+    """Phase 1, the checks of phases 2, 3b and 3c, and phase 5, on two
+    cores, while phase 5's CPU run (a cross-check, timed by nothing) goes
+    on on the others from the start.  Returns the context, phase 2's
+    errors and the inputs of the timed phases."""
+    fg, bg = split_cores()
+    every_core = os.sched_getaffinity(0)
+    with ThreadPoolExecutor(1) as pool:
+        t5 = time.perf_counter()
+        small, cpu_run = start_crosscheck(work, pool, bg)
+        os.sched_setaffinity(0, fg)
+        try:
+            ctx = phase_env()
+            log(f"[phase 5] CPU run started on cores {sorted(bg)}; phases 1-3c's checks and phase 5 on CUDA "
+                f"run on cores {sorted(fg)}")
+            max_err = phase_exact(ctx)
+            nw_inputs = phase_nw(ctx)
+            phylo_inputs = phase_phylo(ctx)
+            phase_crosscheck(work, small, cpu_run, t5)
+        except BaseException:
+            stop_cli_runs()  # or the pool would wait for the CPU run
+            raise
+        finally:
+            os.sched_setaffinity(0, every_core)
+    return ctx, max_err, nw_inputs, phylo_inputs
 
 
 def main() -> int:
@@ -568,15 +986,16 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    ctx = phase_env()
-    max_err = phase_exact(ctx)
-    timing = phase_times(ctx)
-    phase_nw(ctx)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        ctx, max_err, nw_inputs, phylo_inputs = checks_beside_cpu_run(work)
+        # from here on nothing runs beside the timed phases
+        timing = phase_times(ctx)
+        phase_nw_times(ctx, nw_inputs)
+        phase_phylo_times(ctx, phylo_inputs)
         launches = phase_slice(work)
-        phase_crosscheck(work)
     finally:
+        stop_cli_runs()
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = []

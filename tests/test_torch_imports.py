@@ -36,7 +36,7 @@ def test_port_imports_without_jax_or_unicore_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 47
+    assert int(res.stdout.strip()) >= 56
 
 
 def test_host_tables_equal_jax():
@@ -84,13 +84,17 @@ def test_device_switch(monkeypatch):
 
 def test_registry_defaults_and_overrides(port_env, monkeypatch):  # noqa: F811
     from unicore_tpu_torch.align.engine import AlignmentEngine
+    from unicore_tpu_torch.phylo.engine import TreeEngine
     from unicore_tpu_torch.runtime import errors, registry
 
     assert isinstance(registry.get("foldseek")(None), AlignmentEngine)
-    for name in ("iqtree", "fasttree", "raxml-ng", "prostt5"):
-        with pytest.raises(errors.UnicoreError) as e:
-            registry.get(name)
-        assert e.value.err_code == errors.ERR_BINARY_NOT_FOUND
+    for name in ("iqtree", "fasttree", "raxml-ng"):
+        eng = registry.get(name)()
+        assert isinstance(eng, TreeEngine)
+        assert (eng.schedule, eng.device) == (name, torch.device("cpu"))
+    with pytest.raises(errors.UnicoreError) as e:
+        registry.get("prostt5")
+    assert e.value.err_code == errors.ERR_BINARY_NOT_FOUND
     # an engines.cfg override is resolved before the default
     (port_env / "port_engines.cfg").write_text(
         "# test override\nfoldseek=unicore_tpu_torch.runtime.device:resolve\n")
@@ -116,10 +120,9 @@ def test_registry_msa_engines(port_env, name, mode, refine):  # noqa: F811
 
 
 @pytest.mark.parametrize("argv", [
-    ["tree", "db", "in", "out"],
-    ["easy-core", "in", "out", "mock", "tmp"],
     ["search", "db", "target", "out", "tmp"],
     ["config", "--check"],
+    ["gene-tree", "in"],
 ])
 def test_cli_unported_subcommands_exit_typed(port_env, argv):  # noqa: F811
     from unicore_tpu_torch.cli import main

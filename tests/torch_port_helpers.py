@@ -34,6 +34,18 @@ def port_env(tmp_path, monkeypatch):
     registry._OVERRIDES.update(overrides)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """Run the test with one intra-op thread in torch.  The likelihood
+    issues many small ops, and with torch's default of one OpenMP thread
+    per core, test workers running side by side spin against each other
+    and run many times slower than one alone."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def stats_dir(port_env, package: str):
     """The E-value cache of `package` under port_env's HOME."""
     return port_env / "home" / ".cache" / package / "stats"
@@ -70,6 +82,12 @@ def random_pairs(rng, B, Lq, Lt, minlen=10, plant=40):
 
 
 LETTERS = "ARNDCQEGHILKMFPSTWYV"
+
+# Inference outputs, port against JAX (both float32; see test_torch_phylo.py)
+BLEN_LL_RTOL = 1e-4               # lnL after branch-length optimization
+BLEN_ATOL, BLEN_RTOL = 1e-3, 1e-2  # each branch length
+SUPPORT_POINTS = 1.0               # UFBoot support, in percent
+RESOLVED = 2 * BLEN_ATOL           # a shorter branch may be resolved either way
 
 
 def _family(rng, n, L):
@@ -116,3 +134,51 @@ def files_of(root):
 def as_torch(*arrays):
     return tuple(None if a is None else torch.from_numpy(np.ascontiguousarray(a))
                  for a in arrays)
+
+
+def edges(tree):
+    """{split: (length, support)} of an unrooted tree, leaf edges included;
+    a split is its smaller side (ties: the sorted-first)."""
+    everyone = frozenset(l.name for l in tree.leaves())
+    out = {}
+    for node in tree.postorder():
+        if node is tree:
+            continue
+        below = frozenset(l.name for l in node.leaves())
+        key = min(below, everyone - below, key=lambda s: (len(s), sorted(s)))
+        out[key] = (node.length, node.support)
+    return out
+
+
+def assert_same_tree(jt, tt, supported=True):
+    """The port's tree `tt` against JAX's `jt` (Newick strings or nodes).
+
+    Every split whose branch is longer than RESOLVED in either tree is in
+    both (RF 0 on the resolved splits); a split in one tree only must be
+    shorter than RESOLVED in it: a near-zero branch is a polytomy that
+    float noise resolves either way (the four-species fixture evolves its
+    families as a star).  Branch lengths of common splits within
+    BLEN_ATOL + BLEN_RTOL * len.  With `supported`, each tree leaves at
+    most one internal split without a support, and the supports both
+    write lie in [0, 100] and, on resolved splits, within SUPPORT_POINTS
+    of each other.  Both packages leave the root split of the rooted
+    search tree without a support when both root children are internal
+    (a defect of the reference, kept in the port); re-rootings of one
+    tree tie in lnL and float noise picks among them, so whether a tree
+    has such a split, and which, may differ between the two."""
+    from unicore_tpu_torch.phylo.newick import parse_newick
+
+    je, te = (edges(parse_newick(x if isinstance(x, str) else x.to_newick())) for x in (jt, tt))
+    for a, b in ((je, te), (te, je)):
+        for k in set(a) - set(b):
+            assert a[k][0] <= RESOLVED, (k, a[k])
+    assert any(k in te for k in je)
+    if supported:
+        unlabelled = [sum(len(k) > 1 and e[k][1] is None for k in e) for e in (je, te)]
+        assert max(unlabelled) <= 1, unlabelled
+    for k in set(je) & set(te):
+        (length, sup), (tlen, tsup) = je[k], te[k]
+        assert abs(tlen - length) <= BLEN_ATOL + BLEN_RTOL * length, (k, length, tlen)
+        if supported and len(k) > 1 and sup is not None and tsup is not None:
+            assert 0.0 <= tsup <= 100.0, (k, tsup)
+            assert length <= RESOLVED or abs(tsup - sup) <= SUPPORT_POINTS, (k, sup, tsup)

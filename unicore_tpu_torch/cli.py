@@ -4,10 +4,11 @@ subcommands ported so far.
 `build_parser` and `resolve` are copies of unicore_tpu's (the same
 subcommands, flags, defaults and pre-wired paths), so a command line
 means the same to both packages.  `run` dispatches `createdb`, `cluster`,
-`profile`, `version`, and `tree` and `easy-core` with -n/--no-inference
-(up to the supermatrix); the other subcommands, and `tree` and
-`easy-core` without -n (tree inference), exit with the typed "not yet
-ported" error (ERR_MODULE_NOT_IMPLEMENTED) before anything is written.
+`profile`, `tree` (MSA, supermatrix and tree inference with the iqtree,
+fasttree and raxml-ng schedules), `easy-core` and `version`; the other
+subcommands, and tree options naming a partition file (-p/-q), exit with
+the typed "not yet ported" error (ERR_MODULE_NOT_IMPLEMENTED) before
+anything is written.
 
 The device is chosen in runtime/device.py: CUDA, unless
 UNICORE_TPU_TORCH_DEVICE=cpu asks for the CPU.  With
@@ -322,10 +323,10 @@ def run(args: SimpleNamespace) -> None:
                   f"(ported: {', '.join(PORTED)})")
     from unicore_tpu_torch.modules import cluster, createdb, profile, tree
     from unicore_tpu_torch.workflow import easy_core
-    if cmd in ("tree", "easy-core") and not args.tree_no_inference:
-        tree.inference_not_ported(f"'{cmd}' without -n/--no-inference")
     module = {"createdb": createdb, "cluster": cluster, "profile": profile,
               "tree": tree, "easy-core": easy_core}[cmd]
+    if cmd == "easy-core":
+        tree.check_ported(args)  # before the stages ahead of tree write anything
     with profiling.stage(cmd):
         module.run(args)
 

@@ -1,7 +1,7 @@
-"""tree — per-gene MSA, gap filter and concatenation.
+"""tree — per-gene MSA, gap filter, concatenation, species-tree inference.
 
 Counterpart of unicore_tpu/modules/tree.py (stage contract of
-modules/tree.rs:17-163) up to the supermatrix:
+modules/tree.rs:17-163):
   * read `{input}/*.txt` core-gene lists
   * create per-gene fastas ({output}/fasta/{gene}/{aa,3di}.fasta) with
     species-renamed records (tree.rs:63-69)
@@ -11,14 +11,16 @@ modules/tree.rs:17-163) up to the supermatrix:
     mafft/mafft-linsi -> {gene}.fa), then gap-filter ->
     {gene}.fa.filtered (threshold semantics of tree.rs:299-331)
   * combine_fasta -> combined.fasta + .partitions (tree.rs:130)
-  * --no-inference early return (tree.rs:132-134)
-  * checkpoints tree.chk 0
+  * skip-alignment fast path when combined.fasta exists (tree.rs:55-57);
+    --no-inference early return (tree.rs:132-134)
+  * tree builder (iqtree, fasttree, raxml-ng: phylo/engine.py on the
+    engine's device) with default options (tree.rs:140-157) writing the
+    per-builder output files, under the profiling stage `tree.inference`
+  * checkpoints tree.chk 0/1
 
-Species-tree inference (iqtree, fasttree, raxml-ng) is not ported yet:
-a run that would reach it — one without -n/--no-inference, or the JAX
-module's skip path when combined.fasta already exists, which goes
-straight to inference — exits with ERR_MODULE_NOT_IMPLEMENTED before it
-writes anything.
+Tree options naming a partition file (-p/-q) are not ported yet: a run
+that would reach inference with them exits with
+ERR_MODULE_NOT_IMPLEMENTED before it writes anything.
 """
 
 from __future__ import annotations
@@ -33,15 +35,20 @@ from unicore_tpu_torch.msa.gapfilter import filter_msa
 from unicore_tpu_torch.runtime import checkpoint as chkpnt
 from unicore_tpu_torch.runtime import errors as err
 from unicore_tpu_torch.runtime import logging as msg
+from unicore_tpu_torch.runtime import profiling
 from unicore_tpu_torch.seq.gsf import create_gene_specific_fasta
 
+DEFAULT_TREE_OPTIONS = {
+    "iqtree": "-m JTT+F+I+G -B 1000",
+    "raxml-ng": "--model JTT+F+I+G --seed 12345 --all --tree pars{90},rand{10}",
+    "fasttree": "-gamma -boot 1000",
+}
 
-def inference_not_ported(what: str) -> None:
-    """The typed exit of every path that would run tree inference."""
-    err.error(err.ERR_MODULE_NOT_IMPLEMENTED,
-              f"{what}: tree inference (iqtree, fasttree, raxml-ng) is not yet ported "
-              f"to unicore_tpu_torch; -n/--no-inference stops after the supermatrix, "
-              f"before inference")
+
+def _tree_options(tree_builder: str, tree_options) -> str:
+    return tree_options if tree_options else DEFAULT_TREE_OPTIONS.get(
+        tree_builder, DEFAULT_TREE_OPTIONS["iqtree"]
+    )
 
 
 def _msa_engine(aligner: str, options):
@@ -110,58 +117,94 @@ def run_aligner(
     msg.println_message(" Done", 3)
 
 
+def run_tree_builder(
+    tree_builder: str, output_dir: str, msa_fasta: str, tree_options, threads: int = 0
+) -> str:
+    from unicore_tpu_torch.runtime import registry
+
+    if tree_builder not in DEFAULT_TREE_OPTIONS and tree_builder != "raxml":
+        err.error(err.ERR_GENERAL, "Unrecognized tree builder")
+    options = _tree_options(tree_builder, tree_options)
+    name = "raxml-ng" if tree_builder == "raxml" else tree_builder
+    engine = registry.get(name)()
+    return engine.run_file(msa_fasta, output_dir, options=options, threads=threads)
+
+
+def check_ported(args) -> None:
+    """The typed exit for tree options the port does not run yet (a
+    partition file), where the run would reach inference; raised before
+    anything is written."""
+    combined = os.path.join(args.tree_output, "combined.fasta")
+    if not args.tree_no_inference or os.path.isfile(combined):
+        from unicore_tpu_torch.phylo.engine import check_ported_options
+        check_ported_options(_tree_options(args.tree_tree_builder, args.tree_tree_options))
+
+
 def run(args) -> None:
     db = args.tree_db
     input_dir = args.tree_input
     output = args.tree_output
     aligner = args.tree_aligner
     no_inference = bool(args.tree_no_inference)
+    tree_builder = args.tree_tree_builder
     aligner_options = args.tree_aligner_options
+    tree_options = args.tree_tree_options
     threshold = args.tree_threshold
 
     combined = os.path.join(output, "combined.fasta")
-    if not no_inference:
-        inference_not_ported("tree without -n/--no-inference")
-    if os.path.isfile(combined):
-        inference_not_ported(f"Concatenated alignment file {combined} already exists, "
-                             f"and the tree module goes on to inference")
+    check_ported(args)
 
     os.makedirs(output, exist_ok=True)
     chkpnt.write_checkpoint(os.path.join(output, "tree.chk"), "0")
 
-    gene_fasta_dir = os.path.join(output, "fasta")
-    os.makedirs(gene_fasta_dir, exist_ok=True)
-    gene_files = sorted(
-        os.path.join(input_dir, f)
-        for f in os.listdir(input_dir)
-        if f.endswith(".txt")
-    )
-    if not gene_files:
-        err.error(err.ERR_GENERAL, f"No core gene lists (*.txt) found in {input_dir}")
-    create_gene_specific_fasta(db, gene_fasta_dir, gene_files)
-
-    if aligner == "foldmason":
-        # materialize per-gene seqdbs (parity with tree.rs:78-110)
-        for gene_path in gene_files:
-            gene_name = os.path.splitext(os.path.basename(gene_path))[0]
-            gene_dir = os.path.join(gene_fasta_dir, gene_name)
-            aa = fasta.read_fasta(os.path.join(gene_dir, "aa.fasta"))
-            di = fasta.read_fasta(os.path.join(gene_dir, "3di.fasta"))
-            names = list(aa.keys())
-            SeqDB(
-                names=names,
-                aa_seqs=[aa[n] for n in names],
-                ss_seqs=[di[n] for n in names],
-            ).write(os.path.join(gene_dir, f"{gene_name}_db"))
-
-    run_aligner(aligner, gene_fasta_dir, gene_files, aligner_options, threshold)
-
-    msa_list = [
-        os.path.join(
-            gene_fasta_dir,
-            os.path.splitext(os.path.basename(g))[0],
-            os.path.splitext(os.path.basename(g))[0] + ".fa.filtered",
+    if not os.path.isfile(combined):
+        gene_fasta_dir = os.path.join(output, "fasta")
+        os.makedirs(gene_fasta_dir, exist_ok=True)
+        gene_files = sorted(
+            os.path.join(input_dir, f)
+            for f in os.listdir(input_dir)
+            if f.endswith(".txt")
         )
-        for g in gene_files
-    ]
-    combine_fasta(msa_list, output)
+        if not gene_files:
+            err.error(err.ERR_GENERAL, f"No core gene lists (*.txt) found in {input_dir}")
+        create_gene_specific_fasta(db, gene_fasta_dir, gene_files)
+
+        if aligner == "foldmason":
+            # materialize per-gene seqdbs (parity with tree.rs:78-110)
+            for gene_path in gene_files:
+                gene_name = os.path.splitext(os.path.basename(gene_path))[0]
+                gene_dir = os.path.join(gene_fasta_dir, gene_name)
+                aa = fasta.read_fasta(os.path.join(gene_dir, "aa.fasta"))
+                di = fasta.read_fasta(os.path.join(gene_dir, "3di.fasta"))
+                names = list(aa.keys())
+                SeqDB(
+                    names=names,
+                    aa_seqs=[aa[n] for n in names],
+                    ss_seqs=[di[n] for n in names],
+                ).write(os.path.join(gene_dir, f"{gene_name}_db"))
+
+        run_aligner(aligner, gene_fasta_dir, gene_files, aligner_options, threshold)
+
+        msa_list = [
+            os.path.join(
+                gene_fasta_dir,
+                os.path.splitext(os.path.basename(g))[0],
+                os.path.splitext(os.path.basename(g))[0] + ".fa.filtered",
+            )
+            for g in gene_files
+        ]
+        combine_fasta(msa_list, output)
+
+        if no_inference:
+            return
+    else:
+        msg.println_message(
+            f"Concatenated alignment file {combined} already exists, skipping alignment step", 3
+        )
+
+    msg.print_message("Inferring phylogenetic tree...", 3)
+    with profiling.stage("tree.inference"):
+        run_tree_builder(tree_builder, output, combined, tree_options)
+    msg.println_message(" Done", 3)
+
+    chkpnt.write_checkpoint(os.path.join(output, "tree.chk"), "1")

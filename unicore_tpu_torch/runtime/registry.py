@@ -13,9 +13,11 @@ Valid names mirror envs/variables.rs:79-81 plus TPU-native extras.
 
 Counterpart of unicore_tpu/runtime/registry.py.  `foldseek` (the port's
 AlignmentEngine), `foldmason`, `mafft` and `mafft-linsi` (its
-ProgressiveMSA) have default factories here; every other valid name
-resolves to a typed ERR_BINARY_NOT_FOUND "not yet ported" unless an
-override names a factory.  Overrides are read from the port's own
+ProgressiveMSA), and `iqtree`, `fasttree` and `raxml-ng` (its TreeEngine
+schedules) have default factories here; every other valid name resolves
+to a typed ERR_BINARY_NOT_FOUND "not yet ported" unless an override
+names a factory.  Each engine runs on the device runtime/device.py
+resolves.  Overrides are read from the port's own
 engines.cfg: $UNICORE_TPU_TORCH_ENGINES_CFG, ./engines.cfg, or
 ~/.unicore_tpu_torch/engines.cfg.
 """
@@ -33,9 +35,9 @@ VALID_ENGINES = (
     "foldmason",     # -> unicore_tpu_torch.msa 3Di-aware progressive MSA
     "mafft",         # -> unicore_tpu_torch.msa AA-only progressive MSA
     "mafft-linsi",   # -> unicore_tpu_torch.msa AA-only, accurate settings
-    "iqtree",        # not yet ported (ML engine, NNI + UFBoot-style)
-    "fasttree",      # not yet ported (approximate-ML schedule)
-    "raxml-ng",      # not yet ported (ML engine, raxml-style schedule)
+    "iqtree",        # -> unicore_tpu_torch.phylo ML engine, NNI + UFBoot-style
+    "fasttree",      # -> unicore_tpu_torch.phylo approximate-ML schedule
+    "raxml-ng",      # -> unicore_tpu_torch.phylo ML engine, raxml-style schedule
     "mmseqs",        # registered but never invoked (parity: variables.rs:80)
     "prostt5",       # not yet ported (the AA->3Di translation model)
 )
@@ -150,11 +152,26 @@ def _register_defaults() -> None:
         from unicore_tpu_torch.msa.progressive import ProgressiveMSA
         return ProgressiveMSA(mode="aa", refine_iters=2)
 
+    def _tree_iqtree():
+        from unicore_tpu_torch.phylo.engine import TreeEngine
+        return TreeEngine(schedule="iqtree")
+
+    def _tree_fasttree():
+        from unicore_tpu_torch.phylo.engine import TreeEngine
+        return TreeEngine(schedule="fasttree")
+
+    def _tree_raxml():
+        from unicore_tpu_torch.phylo.engine import TreeEngine
+        return TreeEngine(schedule="raxml-ng")
+
     defaults = {
         "foldseek": _align_engine,
         "foldmason": _msa_engine_foldmason,
         "mafft": _msa_engine_mafft,
         "mafft-linsi": _msa_engine_linsi,
+        "iqtree": _tree_iqtree,
+        "fasttree": _tree_fasttree,
+        "raxml-ng": _tree_raxml,
     }
     for k, v in defaults.items():
         _FACTORIES.setdefault(k, v)

@@ -6,8 +6,11 @@ duplicates others (so core and non-core genes both occur), fills every
 proteome up to a fixed size with species-specific orphan genes, and
 writes one FASTA per species.  Lengths follow a bacterial-like lognormal
 (median 300, clipped to 50-2,000), so a few percent take the banded path.
-Everything comes from one numpy seed.  `cluster_purity` scores a
-`cluster` run against the generating families.  `sw_edge_pairs` makes
+Everything comes from one numpy seed, and `species_tree` rebuilds the
+species tree of a seed (the reference of an inferred tree).
+`cluster_purity` scores a `cluster` run against the generating families;
+`simulate_msa` makes an aligned MSA along a random tree (likelihood
+inputs).  `sw_edge_pairs` makes
 Smith-Waterman inputs at the edges of the kernel's mapping, `nw_scores`
 score batches for the NW forward (ops/nw_device.py).
 """
@@ -65,12 +68,32 @@ def mutate(rng, seq, dist):
     return seq
 
 
+def _species(n_species):
+    return [f"sp{i:02d}" for i in range(n_species)]
+
+
+def species_tree(n_species, seed):
+    """The species tree `write_proteomes(..., n_species, ..., seed)`
+    evolves its families along (its RandomState's first draw), as a
+    rooted phylo.newick.Node whose leaves are the species names and whose
+    branch lengths are substitutions per site."""
+    from unicore_tpu_torch.phylo.newick import Node
+
+    species = _species(n_species)
+    edges, root = random_tree(np.random.RandomState(seed), species, depth=0.25)
+    nodes = {i: Node(name) for i, name in enumerate(species)}
+    for p, c, length in edges:  # children come before their parents
+        nodes[c].length = length
+        nodes.setdefault(p, Node()).add(nodes[c])
+    return nodes[root]
+
+
 def write_proteomes(out_dir, n_species, per_species, seed, long_family=False):
     """Write `n_species` FASTAs of `per_species` proteins into `out_dir`;
     returns {header: family id} (orphans get unique negative ids).
     `long_family` makes the first family 1,100 residues long."""
     rng = np.random.RandomState(seed)
-    species = [f"sp{i:02d}" for i in range(n_species)]
+    species = _species(n_species)
     edges, root = random_tree(rng, species, depth=0.25)
     children = {}
     for p, c, l in edges:
@@ -118,6 +141,32 @@ def write_proteomes(out_dir, n_species, per_species, seed, long_family=False):
                 labels[name] = fam
                 fh.write(f">{name}\n{''.join(LETTERS[c] for c in seq)}\n")
     return labels
+
+
+def simulate_msa(rng, n_taxa, L, sub_rate=0.12, gap_frac=1 / 30):
+    """{name: aligned AA row} evolved along a random binary tree: each
+    edge substitutes about sub_rate * L random positions, and each leaf
+    gets about gap_frac * L gap columns.  Names t0..t{n-1}, sorted."""
+    items = [("leaf", i) for i in range(n_taxa)]
+    while len(items) > 1:
+        a, b = rng.choice(len(items), 2, replace=False)
+        items = [it for k, it in enumerate(items) if k not in (a, b)] + \
+            [("int", (items[a], items[b]))]
+    rows = {}
+    stack = [(items[0], rng.randint(0, 20, L))]
+    while stack:
+        (kind, v), seq = stack.pop()
+        if kind == "leaf":
+            row = np.array(list(LETTERS))[seq]
+            row[rng.randint(0, L, int(L * gap_frac))] = "-"
+            rows[f"t{v}"] = "".join(row)
+            continue
+        for ch in v:
+            s = seq.copy()
+            k = rng.poisson(sub_rate * L)
+            s[rng.randint(0, L, k)] = rng.randint(0, 20, k)
+            stack.append((ch, s))
+    return {k: rows[k] for k in sorted(rows, key=lambda s: int(s[1:]))}
 
 
 def cluster_purity(out_dir, labels):

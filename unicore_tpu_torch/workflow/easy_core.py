@@ -2,9 +2,11 @@
 
 Counterpart of unicore_tpu/workflow/easy_core.py (workflow/easy_core.rs:
 14-95): each stage is skipped iff its checkpoint file reads "1" (createdb
-additionally honors --overwrite).  The tree stage is ported up to the
-supermatrix, so the workflow runs with -n/--no-inference only (cli.py
-exits with ERR_MODULE_NOT_IMPLEMENTED before any stage otherwise).
+additionally honors --overwrite).  The tree stage runs the MSA, the
+supermatrix and, unless -n/--no-inference, species-tree inference
+(modules/tree.py); tree options naming a partition file (-p/-q) exit with
+ERR_MODULE_NOT_IMPLEMENTED before any stage writes anything (cli.run checks
+them first).
 """
 
 from __future__ import annotations
