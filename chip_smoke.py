@@ -86,15 +86,46 @@ failure, and no phase is skipped:
    outputs parsed: the same topology (RF 0), branch lengths within
    BLEN_ATOL + BLEN_RTOL len, supports within SUPPORT_POINTS, lnL within
    BLEN_LL_RTOL, every other report line equal but `seconds`.
+6. The slice's other paths:
+   6a. The cascade at phase 4's scale: phase 4's proteomes (seed 7, 20 x
+       120) through `createdb mock` into a directory of their own, then
+       `cluster_db(..., cascade_threshold=CASCADE_THRESHOLD)` in process on
+       CUDA.  Requires every sequence in exactly one cluster, purity of at
+       least PURITY_FLOOR and both kernel modes launched during the call;
+       prints the canopy representatives, the verify pairs, the
+       representative round's pairs and edges, whether its empirical null
+       was fitted (below 5,000 pairs it is not), the clusters and the time.
+   6b. The cascade at CROSS_CASCADE_THRESHOLD on phase 5's database, on
+       CUDA and inside phase 5's CPU run: clust.tsv byte-identical.
+   6c. `gene-tree` with its defaults (iqtree -m JTT+F+I+G -B 1000) on
+       GENETREE_GENES core genes of phase 4, the first two of them (in name
+       order) to share a (taxa, pattern bucket) lockstep group and the
+       first others: per gene a tree over its taxa, supports in [0, 100]
+       (one split may have none), a finite lnL, the unpadded pattern count
+       in iqtree.iqtree; seconds and Adam steps per gene.  Beside it, on
+       other cores, the group's lockstep inference (fasttree, -gamma, in
+       process) against a solo inference of each gene (a process each):
+       the same splits but those on a branch of at most RESOLVED in the
+       tree that has them (RF is printed), lnL within SOLO_LL_RTOL.  Then
+       the slice's new device work timed alone: a canopy gram and one
+       gene-batched likelihood call against the per-gene calls.
+   6d. `gene-tree` with its defaults on copies of phase 5's first
+       CROSS_GENETREE_GENES core genes, on CUDA and inside phase 5's CPU
+       run: the outputs compared as phase 5 compares its trees.
+   6e. `config --check` on the card: exit 0, CUDA with 1 device and the
+       card's name, every engine ok but mmseqs (no factory, as in JAX).
 
-Order of the run: phase 5's CPU run starts first, on every core but two,
-and goes on beside phase 1, the checks of phases 2, 3b and 3c and phase
-5's CUDA run, which run on those two.  Once it has ended, phase 3, the
-times of phases 3b and 3c and phase 4 run with nothing beside them.
+Order of the run: phase 5's CPU run (6b's CPU run beside its easy-core,
+6d's after its tree runs) starts first, on every core but two, and goes
+on beside phase 1, the checks of phases 2, 3b and 3c, then 6a (in a
+thread of its own) beside 6e and phase 5's CUDA run followed by 6b's and
+6d's, all on those two.  Once it has ended, phase 3, the times of phases
+3b and 3c and phase 4 run with nothing beside them, then 6c.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel mode: launches in phase 4, times and bound at (512, 512), the
-main path's most common bucket); the last line is
+main path's most common bucket; 6a prints the cascade's launches); the
+last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero before
 printing any result.  Nothing here imports JAX or unicore_tpu.
 """
@@ -154,6 +185,16 @@ BLEN_LL_RTOL, BLEN_ATOL, BLEN_RTOL = 1e-4, 1e-3, 1e-2
 SUPPORT_POINTS = 1.0
 RF_FLOOR = 0.2  # normalized RF of phase 4's tree to the generating species tree
 CROSS_SPECIES, CROSS_PER_SPECIES = 5, 40
+CASCADE_THRESHOLD = 1000       # phase 6a: phase 4's 2,400 sequences go through the cascade
+CROSS_CASCADE_THRESHOLD = 50   # phase 6b: and phase 5's 200
+GENETREE_GENES = 2             # phase 6c: core genes of phase 4, both of one lockstep group
+CROSS_GENETREE_GENES = 3       # phase 6d: core genes of phase 5
+SOLO_LL_RTOL = 1e-3            # phase 6c: lockstep against solo inference (tests/test_genetree_batched.py)
+# 6c: a split in one of the lockstep and solo trees only must have a branch
+# this short: a zero-length edge is a polytomy that float noise resolves
+# either way (the rule of tests/torch_port_helpers.py::assert_same_tree)
+RESOLVED = 2e-3
+CHECKABLE = ("foldseek", "foldmason", "mafft", "mafft-linsi", "iqtree", "fasttree", "raxml-ng")
 
 
 class SmokeError(RuntimeError):
@@ -257,9 +298,10 @@ def stop_cli_runs():
 
 
 def run_steps(steps, out_dir, home, device=None, threads=None):
-    """Run `python -m unicore_tpu_torch` steps [(name, argv)], each a
-    subprocess with HOME=home (and `threads` torch threads, if given);
-    returns ({name: seconds}, {name: counters})."""
+    """Run `python -m unicore_tpu_torch` steps [(name, argv)] (or `python
+    -c` steps, argv ["-c", code]), each a subprocess with HOME=home (and
+    `threads` torch threads, if given); returns ({name: seconds},
+    {name: counters})."""
     env = dict(os.environ, HOME=home, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("UNICORE_TPU_TORCH_DEVICE", None)
     if device:
@@ -275,7 +317,8 @@ def run_steps(steps, out_dir, home, device=None, threads=None):
         with _RUNNING_LOCK:
             if _STOPPED.is_set():
                 raise SmokeError(f"{stage} not started: the run is stopping")
-            proc = subprocess.Popen([sys.executable, "-m", "unicore_tpu_torch", *argv, "-v", "2"], cwd=ROOT,
+            cmd = argv if argv[0] == "-c" else ["-m", "unicore_tpu_torch", *argv, "-v", "2"]
+            proc = subprocess.Popen([sys.executable, *cmd], cwd=ROOT,
                                     env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             _RUNNING.add(proc)
         try:
@@ -303,16 +346,25 @@ def run_slice(in_dir, out_dir, home, device=None):
     return run_steps(steps, out_dir, home, device)
 
 
-def run_easy_core(in_dir, out_dir, home, device=None, threads=None):
+def run_easy_core(in_dir, out_dir, home, device=None, threads=None, beside=(), after=None):
     """easy-core with its defaults, then, on its database, core genes and
     copies of its supermatrix: tree -T raxml-ng beside tree -n with the two
     other aligners followed by tree -T fasttree (raxml-ng's three starts
-    take as long as the three others; each side gets half the threads)."""
+    take as long as the three others; each side gets half the threads).
+    `beside`: steps run next to easy-core, on a third of the threads;
+    `after()`: steps appended to the second side, made once easy-core has
+    ended."""
     db = os.path.join(out_dir, "proteome", "proteome_db")
     prof = os.path.join(out_dir, "profile")
-    times, counters = run_steps(
-        [("easy-core", ["easy-core", in_dir, out_dir, "mock", os.path.join(out_dir, "tmp")])],
-        out_dir, home, device, threads)
+    third = threads and max(1, threads // 3) if beside else 0
+    with ThreadPoolExecutor(1) as pool:
+        next_to = pool.submit(run_steps, list(beside), out_dir, home, device, third)
+        times, counters = run_steps(
+            [("easy-core", ["easy-core", in_dir, out_dir, "mock", os.path.join(out_dir, "tmp")])],
+            out_dir, home, device, threads and threads - third)
+        beside_times, beside_counters = next_to.result()
+    times.update(beside_times)
+    counters.update(beside_counters)
     for sub in ("tree_fasttree", "tree_raxml"):
         os.makedirs(os.path.join(out_dir, sub))
         for f in ("combined.fasta", "combined.fasta.partitions"):
@@ -321,7 +373,8 @@ def run_easy_core(in_dir, out_dir, home, device=None, threads=None):
         [("tree_raxml", ["tree", db, prof, os.path.join(out_dir, "tree_raxml"), "-T", "raxml-ng"])],
         [("tree_mafft", ["tree", db, prof, os.path.join(out_dir, "tree_mafft"), "-n", "-A", "mafft"]),
          ("tree_linsi", ["tree", db, prof, os.path.join(out_dir, "tree_linsi"), "-n", "-A", "mafft-linsi"]),
-         ("tree_fasttree", ["tree", db, prof, os.path.join(out_dir, "tree_fasttree"), "-T", "fasttree"])],
+         ("tree_fasttree", ["tree", db, prof, os.path.join(out_dir, "tree_fasttree"), "-T", "fasttree"])]
+        + (after() if after else []),
     ]
     half = threads and max(1, threads // 2)
     with ThreadPoolExecutor(len(sides)) as pool:
@@ -478,7 +531,7 @@ def phase_env():
     dev = torch.device("cuda")
     saa_np = get_aa_matrix().astype(np.float32)
     s3d_np = get_3di_matrix().astype(np.float32)
-    return dict(dev=dev, peak_ops=peak_ops, saa_np=saa_np, s3d_np=s3d_np,
+    return dict(dev=dev, peak_ops=peak_ops, saa_np=saa_np, s3d_np=s3d_np, smi=smi,
                 saa=torch.from_numpy(saa_np).to(dev), s3d=torch.from_numpy(s3d_np).to(dev),
                 rng=np.random.RandomState(20261016))
 
@@ -895,6 +948,312 @@ def phase_inference(work, out_dir, n_species):
     check(rf <= RF_FLOOR, f"normalized RF {rf:.4f} to the generating species tree > {RF_FLOOR}")
 
 
+def cascade_step(db_path, tsv, threshold):
+    """cluster_db(..., cascade_threshold=threshold) on a seqdb (the cascade
+    has no CLI option), the clusters written to `tsv`; with
+    UNICORE_TPU_TORCH_COUNTERS set, the counters and kernel launches go to
+    that file as the CLI writes them.  Returns (db, counters, seconds)."""
+    from unicore_tpu_torch.align.clustering import write_cluster_tsv
+    from unicore_tpu_torch.align.engine import AlignParams
+    from unicore_tpu_torch.io.seqdb import SeqDB
+    from unicore_tpu_torch.modules.cluster import cluster_db
+    from unicore_tpu_torch.ops import sw_cuda
+    from unicore_tpu_torch.runtime import logging as msg
+    from unicore_tpu_torch.runtime import profiling
+
+    msg.set_verbosity(2)
+    db = SeqDB.read(db_path, require_ss=True)
+    profiling.reset_counters()
+    sw_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    clusters, _ = cluster_db(db, AlignParams.from_options("-c 0.8"), cascade_threshold=threshold)
+    seconds = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(tsv), exist_ok=True)
+    write_cluster_tsv(tsv, clusters, db.names)
+    counters = dict(profiling.get_counters(), **{f"kernel.sw.{k}.launches": v
+                                                 for k, v in sw_cuda.LAUNCHES.items()})
+    if os.environ.get("UNICORE_TPU_TORCH_COUNTERS"):
+        profiling.dump(os.environ["UNICORE_TPU_TORCH_COUNTERS"], counters)
+    return db, counters, seconds
+
+
+def core_genes(out_dir):
+    return sorted(n[:-4] for n in os.listdir(os.path.join(out_dir, "profile")) if n.endswith(".txt"))
+
+
+def gene_key(msa_file):
+    """(taxa, pattern bucket) of a gene MSA: its lockstep group."""
+    from unicore_tpu_torch.io.fasta import read_fasta
+    from unicore_tpu_torch.phylo.genebatch import pattern_bucket
+    from unicore_tpu_torch.phylo.likelihood import compress_patterns, msa_to_codes
+
+    msa = read_fasta(msa_file)
+    p = compress_patterns(msa_to_codes(list(msa), list(msa.values())))[0].shape[1]
+    return len(msa), pattern_bucket(p), p
+
+
+def cascade_steps(work, small, device):
+    """Phase 6b on one device: phase 5's proteomes through createdb into a
+    directory of their own, then the cascade at CROSS_CASCADE_THRESHOLD."""
+    db = os.path.join(work, f"casc_{device}", "proteome", "proteome_db")
+    code = (f"import chip_smoke as c; c.cascade_step({db!r}, "
+            f"{os.path.join(work, f'casc_{device}', 'cluster', 'clust.tsv')!r}, {CROSS_CASCADE_THRESHOLD})")
+    return [(f"cascade_createdb_{device}", ["createdb", small, db, "mock"]), (f"cascade_{device}", ["-c", code])]
+
+
+def genetree_steps(work, x_dir, device):
+    """Phase 6d on one device: gene-tree with its defaults on a copy of the
+    first CROSS_GENETREE_GENES core genes of phase 5's output `x_dir`
+    (phase 5 compares x_dir's own files)."""
+    gt = os.path.join(work, f"gt_{device}")
+    genes = core_genes(x_dir)[:CROSS_GENETREE_GENES]
+    for g in genes:
+        shutil.copytree(os.path.join(x_dir, "tree", "fasta", g), os.path.join(gt, "fasta", g))
+    names = os.path.join(work, f"gt_{device}_names.txt")
+    with open(names, "w") as f:
+        f.write("".join(g + "\n" for g in genes))
+    return [(f"genetree_{device}", ["gene-tree", gt, "--name", names])]
+
+
+def check_gene_trees(root, genes, supported=True):
+    """Each gene dir's iqtree outputs: a tree over the gene's taxa, at most
+    one internal split without a support and the others in [0, 100], a
+    finite lnL, and n_patterns the unpadded count of its MSA.  Returns
+    {gene: report lines}."""
+    from unicore_tpu_torch.io.fasta import read_fasta
+    from unicore_tpu_torch.phylo.newick import bipartitions, parse_newick
+
+    reports = {}
+    for g in genes:
+        d = os.path.join(root, "fasta", g)
+        taxa = sorted(read_fasta(os.path.join(d, f"{g}.fa.filtered")))
+        tree = parse_newick(open(os.path.join(d, "iqtree.treefile")).read())
+        check(sorted(x.name for x in tree.leaves()) == taxa, f"gene {g}: iqtree.treefile leaves != its taxa")
+        sups = [nd.support for nd in bipartitions(tree).values()]
+        labelled = [x for x in sups if x is not None]
+        check(len(labelled) >= len(sups) - 1 and all(0.0 <= x <= 100.0 for x in labelled),
+              f"gene {g}: supports {sups}")
+        rep = report_lines(open(os.path.join(d, "iqtree.iqtree"), "rb").read())
+        check(np.isfinite(float(rep["lnL"])), f"gene {g}: lnL {rep['lnL']}")
+        p = gene_key(os.path.join(d, f"{g}.fa.filtered"))[2]
+        check(int(rep["n_patterns"]) == p, f"gene {g}: n_patterns {rep['n_patterns']}, its MSA has {p}")
+        reports[g] = rep
+    return reports
+
+
+def phase_cascade(ctx, work, t0):
+    """Phase 6a: the cascade in process on CUDA at phase 4's scale (its
+    proteomes, threshold CASCADE_THRESHOLD): every sequence in one
+    cluster, purity against the families, both kernel modes launched."""
+    from unicore_tpu_torch import synthetic
+
+    started = time.perf_counter() - t0
+
+    in_dir, out = os.path.join(work, "cascade_in"), os.path.join(work, "cascade")
+    labels = synthetic.write_proteomes(in_dir, N_SPECIES, PER_SPECIES, seed=7)
+    db = os.path.join(out, "proteome", "proteome_db")
+    run_steps([("cascade_createdb", ["createdb", in_dir, db, "mock"])], out, os.path.join(work, "home_cascade"))
+    seqdb, c, seconds = cascade_step(db, os.path.join(out, "cluster", "clust.tsv"), CASCADE_THRESHOLD)
+    members = [line.split("\t")[1] for line in open(os.path.join(out, "cluster", "clust.tsv")).read().splitlines()]
+    check(sorted(members) == sorted(seqdb.names), "the cascade's clusters do not hold every sequence exactly once")
+    purity, n_clusters = synthetic.cluster_purity(out, labels)
+    launches = {k: int(c[f"kernel.sw.{k}.launches"]) for k in ("gapped", "ungapped")}
+    log(f"[phase 6a] cascade (threshold {CASCADE_THRESHOLD}) on {len(seqdb)} sequences on CUDA, in process "
+        f"(from {started:.1f} s to {time.perf_counter() - t0:.1f} s after the CPU run started, beside 6e and "
+        f"phase 5's CUDA run): {seconds:.2f} s ({ctx['smi']}); canopy reps {int(c['cascade.reps'])}, verify pairs "
+        f"{int(c['cascade.verify_pairs'])}, verified {int(c['cascade.verified'])}, rep-round pairs "
+        f"{int(c['cascade.rep_pairs'])}, edges {int(c['cascade.rep_edges'])}, empirical null fitted "
+        f"{int(c['cascade.empirical_null_fitted'])}; {n_clusters} clusters, purity {purity:.4f} "
+        f"(floor {PURITY_FLOOR}); kernel launches {launches}; align.seconds {c['align.seconds']:.2f}, "
+        f"rescore.seconds {c['rescore.seconds']:.2f}, banded.seconds {c.get('banded.seconds', 0.0):.2f}")
+    check(launches["gapped"] > 0 and launches["ungapped"] > 0, f"the cascade did not launch both modes: {launches}")
+    check(purity >= PURITY_FLOOR, f"cascade purity {purity:.4f} < {PURITY_FLOOR}")
+    return dict(seconds=seconds, launches=launches, purity=purity, clusters=n_clusters)
+
+
+def phase_config(ctx, work):
+    """Phase 6e: `config --check` on the card."""
+    import torch
+
+    env = dict(os.environ, HOME=os.path.join(work, "home_config"),
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("UNICORE_TPU_TORCH_DEVICE", None)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "unicore_tpu_torch", "config", "--check"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f"config --check exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    lines = res.stdout.splitlines()
+    check("  cuda available: True, devices: 1, engines run on: cuda" in lines, f"config --check: {res.stdout}")
+    check(f"    cuda:0 {torch.cuda.get_device_name(0)}" in lines, f"config --check names no card: {res.stdout}")
+    for name in CHECKABLE:
+        check(any(line.startswith(f"  {name}: ok (") for line in lines), f"config --check: {name} not ok")
+    check("  mmseqs: no" in lines, "config --check: mmseqs not reported 'no'")
+    log(f"[phase 6e] config --check on CUDA: exit 0 in {seconds:.2f} s ({ctx['smi']}); "
+        + "; ".join(line.strip() for line in lines if line.startswith("  ")))
+
+
+def phase_cross6(ctx, work, cuda_run, cpu_times, cpu_counters):
+    """Phases 6b and 6d, CUDA (`cuda_run`: the times and counters of
+    cascade_steps and genetree_steps, run after phase 5's CUDA run)
+    against the CPU (run inside phase 5's CPU run): the cascade's
+    clust.tsv byte-identical, the gene trees compared after parsing as
+    phase 5 compares its trees."""
+    times, counters = cuda_run
+    tsv = [open(os.path.join(work, f"casc_{d}", "cluster", "clust.tsv"), "rb").read() for d in ("cpu", "cuda")]
+    check(tsv[0] == tsv[1], "the cascade's clust.tsv differs between CUDA and the CPU")
+    cc, cg = cpu_counters["cascade_cpu"], counters["cascade_cuda"]
+    check(cc.get("kernel.sw.gapped.launches", 0) == 0 and cg["kernel.sw.gapped.launches"] > 0,
+          "6b: the kernel ran on the wrong side")
+    check(cg["cascade.reps"] > 0 and cg["cluster.sequences"] > CROSS_CASCADE_THRESHOLD, "6b did not take the cascade")
+    genes = core_genes(os.path.join(work, "x_cuda"))[:CROSS_GENETREE_GENES]
+    a, b = read_files(os.path.join(work, "gt_cpu")), read_files(os.path.join(work, "gt_cuda"))
+    n_inf = check_same_files(a, b)
+    check(n_inf == 3 * len(genes), f"6d compared {n_inf} inference outputs for {len(genes)} genes")
+    check_gene_trees(os.path.join(work, "gt_cuda"), genes)
+    log(f"[phase 6b] cascade (threshold {CROSS_CASCADE_THRESHOLD}) at {CROSS_SPECIES} x {CROSS_PER_SPECIES}: "
+        f"clust.tsv byte-identical CUDA vs CPU ({tsv[0].count(b'\n')} lines, {int(cg['cluster.clusters'])} clusters, "
+        f"canopy reps {int(cg['cascade.reps'])}, rep-round pairs {int(cg['cascade.rep_pairs'])}); "
+        f"CUDA {times['cascade_cuda']:.2f} s, CPU {cpu_times['cascade_cpu']:.2f} s ({ctx['smi']})")
+    log(f"[phase 6d] gene-tree (iqtree defaults) on {len(genes)} core genes of phase 5: {n_inf} inference "
+        f"outputs within tolerance CUDA vs CPU; CUDA {times['genetree_cuda']:.2f} s, CPU "
+        f"{cpu_times['genetree_cpu']:.2f} s ({ctx['smi']})")
+
+
+def solo_infer(msa_path, out_json):
+    """TreeEngine("fasttree").infer(-gamma) of one gene MSA, its tree, lnL
+    and pattern count written to `out_json` (6c's solo side, run as its
+    own process beside the lockstep run)."""
+    from unicore_tpu_torch.io.fasta import read_fasta
+    from unicore_tpu_torch.phylo.engine import TreeEngine
+    from unicore_tpu_torch.runtime import logging as msg
+    from unicore_tpu_torch.runtime import profiling
+
+    msg.set_verbosity(2)
+    tree, ll, info = TreeEngine("fasttree").infer(read_fasta(msa_path), options="-gamma")
+    with open(out_json, "w") as f:
+        json.dump({"newick": tree.to_newick(), "lnL": ll, "n_patterns": info["n_patterns"]}, f)
+    profiling.dump(os.environ["UNICORE_TPU_TORCH_COUNTERS"], {})
+
+
+def phase_genetree(ctx, work):
+    """Phase 6c: gene-tree with its defaults on GENETREE_GENES core genes
+    of phase 4's output, the first two (in name order) to share a (taxa,
+    pattern bucket) group, and that group's lockstep inference (fasttree
+    schedule, -gamma, in process) against a solo inference of each gene
+    (one process each).  The solo runs and the lockstep run go on beside
+    gene-tree, on cores of their own; a mismatch prints both trees."""
+    from unicore_tpu_torch.io.fasta import read_fasta
+    from unicore_tpu_torch.phylo.engine import TreeEngine
+    from unicore_tpu_torch.phylo.newick import parse_newick, rf_distance
+    from unicore_tpu_torch.runtime import logging as msg
+
+    out_dir = os.path.join(work, "main")
+    tree_dir = os.path.join(out_dir, "tree")
+    genes = core_genes(out_dir)
+    keys = {g: gene_key(os.path.join(tree_dir, "fasta", g, f"{g}.fa.filtered")) for g in genes}
+    groups = {}
+    for g in genes:  # in name order: the first group to reach two genes is the one taken
+        groups.setdefault(keys[g][:2], []).append(g)
+    first = next((k for k, v in groups.items() if len(v) >= 2), None)
+    check(first is not None, f"no two of phase 4's {len(genes)} core genes share a lockstep group")
+    grouped = groups[first][:2]
+    picked = grouped + [g for g in genes if g not in grouped][:GENETREE_GENES - 2]
+    names = os.path.join(work, "genetree_names.txt")
+    with open(names, "w") as f:
+        f.write("".join(g + "\n" for g in picked))
+    keep = os.path.join(work, "solo")
+    os.makedirs(keep, exist_ok=True)
+    msa_files = [os.path.join(tree_dir, "fasta", g, f"{g}.fa.filtered") for g in grouped]
+    cores = sorted(os.sched_getaffinity(0))
+    timed, others = set(cores[:2]), set(cores[2:]) or set(cores)
+    solo = [(f"solo_{g}", ["-c", f"import chip_smoke as c; c.solo_infer({m!r}, "
+                                  f"{os.path.join(keep, g + '.solo.json')!r})"]) for g, m in zip(grouped, msa_files)]
+    with ThreadPoolExecutor(1 + len(solo)) as pool:
+        gene_tree = pool.submit(_on_cores, timed, run_steps, [("gene-tree", ["gene-tree", tree_dir, "--name", names])],
+                                out_dir, os.path.join(work, "home_main"))
+        solos = [pool.submit(_on_cores, others, run_steps, [step], os.path.join(work, "solo"),
+                             os.path.join(work, "home_main")) for step in solo]
+        every_core = os.sched_getaffinity(0)
+        os.sched_setaffinity(0, others)
+        try:
+            msg.set_verbosity(2)
+            t0 = time.perf_counter()
+            batched = TreeEngine("fasttree").infer_batched([read_fasta(m) for m in msa_files], options="-gamma")
+            t_batched = time.perf_counter() - t0
+        finally:
+            os.sched_setaffinity(0, every_core)
+        for f in solos:
+            f.result()
+        times, counters = gene_tree.result()
+    c = counters["gene-tree"]
+    reports = check_gene_trees(tree_dir, picked)
+    check(int(c["phylo.genes"]) == len(picked), f"gene-tree inferred {c['phylo.genes']} genes")
+    per_gene = times["gene-tree"] / len(picked)
+    log(f"[phase 6c] gene-tree (iqtree -m JTT+F+I+G -B 1000) on {len(picked)} core genes of phase 4 "
+        f"({', '.join(f'{g}: {keys[g][0]} taxa, {keys[g][2]} patterns' for g in picked)}; lockstep group "
+        f"{first} holds {grouped}): {times['gene-tree']:.2f} s of subprocess wall, {per_gene:.2f} s per gene "
+        f"({ctx['smi']}; beside the lockstep check on other cores); phylo.seconds {c['phylo.seconds']:.2f}, "
+        f"groups {int(c['phylo.gene_groups'])}, Adam steps {int(c['phylo.blen_steps'])} "
+        f"({c['phylo.blen_steps'] / len(picked):.0f} per gene), topologies scored {int(c['phylo.candidates'])}; "
+        f"lnL " + ", ".join(f"{g} {float(reports[g]['lnL']):.4f}" for g in picked))
+    bad = []
+    for g, (bt, bll, binfo) in zip(grouped, batched):
+        s = json.load(open(os.path.join(keep, g + ".solo.json")))
+        rf = rf_distance(bt, parse_newick(s["newick"]))
+        a, b = tree_edges(s["newick"]), tree_edges(bt.to_newick())
+        loose = {k: (a.get(k) or b.get(k))[0] for k in set(a) ^ set(b)}
+        log(f"  lockstep vs solo (fasttree -gamma, CUDA) {g}: RF {rf} (splits in one tree only, with their "
+            f"branch lengths: {({'+'.join(sorted(k)): v for k, v in loose.items()})}), lnL {bll:.4f} vs "
+            f"{s['lnL']:.4f}, n_patterns {binfo['n_patterns']} vs {s['n_patterns']}")
+        if any(v > RESOLVED for v in loose.values()) or abs(bll - s["lnL"]) > SOLO_LL_RTOL * abs(s["lnL"]) \
+                or not binfo["n_patterns"] == s["n_patterns"] == keys[g][2]:
+            bad.append(f"{g}: lockstep {bt.to_newick()} solo {s['newick']}")
+    log(f"  lockstep inference of the group: {t_batched:.2f} s ({ctx['smi']})")
+    check(not bad, "6c: lockstep and solo inference differ: " + "; ".join(bad))
+    phase6_op_times(ctx, msa_files)
+    return dict(seconds=times["gene-tree"], per_gene=per_gene)
+
+
+def phase6_op_times(ctx, msa_files):
+    """The slice's new PyTorch device work timed alone (phase 6c's end):
+    one canopy gram at the size of 6a's first chunk (2,048 bags of 2,048
+    bits, a quarter set, copies to and from the card included), and one
+    `_loglik_multi_impl` call over 6c's lockstep group (each gene's NNI
+    candidates of its NJ tree, JTT+F+G) against the per-gene
+    `loglik_batch` calls it replaces."""
+    from unicore_tpu_torch.align.cascade import _gram
+    from unicore_tpu_torch.io.fasta import read_fasta
+    from unicore_tpu_torch.phylo import genebatch
+    from unicore_tpu_torch.phylo import likelihood as tl
+    from unicore_tpu_torch.phylo import models as tm
+    from unicore_tpu_torch.phylo import search as ts
+    from unicore_tpu_torch.phylo.nj import neighbor_joining, protein_distances
+
+    bags = (np.random.RandomState(6).rand(2048, 2048) < 0.25).astype(np.float32)
+    gram_ms = time_cuda(lambda: _gram(bags, bags, ctx["dev"]), 5)
+    engines, cbs, bbs = [], [], []
+    msas = [read_fasta(m) for m in msa_files]
+    bucket = max(gene_key(m)[1] for m in msa_files)
+    for msa in msas:
+        names, seqs = list(msa), list(msa.values())
+        model = tm.SubstModel.build(tm.ModelSpec.parse("JTT+F+G"), alpha=1.0,
+                                    empirical_freqs=tl.empirical_frequencies(tl.msa_to_codes(names, seqs)))
+        engines.append(tl.LikelihoodEngine(names, seqs, model, pad_patterns_to=bucket))
+        root = neighbor_joining(protein_distances(names, seqs), names)
+        arr = [tl.tree_to_arrays(c, names) for c in ts.nni_neighbors(tl.make_root_binary(root))]
+        cbs.append(np.stack([a[0] for a in arr]))
+        bbs.append(np.maximum(np.stack([a[1] for a in arr]), 1e-3))
+    K = max(len(c) for c in cbs)
+    cb, bb = (np.stack([np.concatenate([x, np.repeat(x[:1], K - len(x), 0)]) for x in xs]) for xs in (cbs, bbs))
+    multi_ms = time_cuda(lambda: genebatch.loglik_multi(engines, cb, bb), 5)
+    solo_ms = time_cuda(lambda: [e.loglik_batch(c, b) for e, c, b in zip(engines, cb, bb)], 5)
+    log(f"  canopy gram of 2048 x 2048 bags (copies included): {gram_ms:.3f} ms; _loglik_multi_impl over "
+        f"{len(engines)} genes x {K} candidates at {engines[0].n} taxa x {bucket} patterns: {multi_ms:.2f} ms, "
+        f"the per-gene loglik_batch calls it replaces {solo_ms:.2f} ms ({ctx['smi']})")
+    return dict(gram_ms=gram_ms, multi_ms=multi_ms, solo_ms=solo_ms)
+
+
 def split_cores():
     """(foreground, background) CPU sets: two cores for the checks that
     drive the card, the others for phase 5's CPU run beside them.  With
@@ -915,23 +1274,31 @@ def _on_cores(cores, fn, *args):
 
 def start_crosscheck(work, pool, cores):
     """Phase 5, first half: write its proteomes and start its CPU run in
-    `pool` on `cores`, with one torch thread per core; returns (input
-    directory, the run's future)."""
+    `pool` on `cores`, with one torch thread per core, 6b's CPU run beside
+    its easy-core and 6d's after its tree runs; returns (input directory,
+    the run's future)."""
     from unicore_tpu_torch import synthetic
 
     small = os.path.join(work, "small")
     synthetic.write_proteomes(small, CROSS_SPECIES, CROSS_PER_SPECIES, seed=11, long_family=True)
-    return small, pool.submit(_on_cores, cores, run_easy_core, small, os.path.join(work, "x_cpu"),
-                              os.path.join(work, "home_cpu"), "cpu", len(cores))
+    x_cpu = os.path.join(work, "x_cpu")
+    return small, pool.submit(_on_cores, cores, run_easy_core, small, x_cpu, os.path.join(work, "home_cpu"),
+                              "cpu", len(cores), cascade_steps(work, small, "cpu"),
+                              lambda: genetree_steps(work, x_cpu, "cpu"))
 
 
-def phase_crosscheck(work, small, cpu_run, t0):
+def phase_crosscheck(ctx, work, small, cpu_run, t0):
     """Phase 5: easy-core, the two other aligners and the two other tree
     builders on CUDA (here) and on the CPU (`cpu_run`, started at t0): the
     same files, byte-identical up to inference, the inference outputs
-    within the stated tolerances."""
+    within the stated tolerances.  Then phases 6b and 6d."""
     cuda_times, _ = run_easy_core(small, os.path.join(work, "x_cuda"), os.path.join(work, "home_cuda"))
+    cuda6 = run_steps(cascade_steps(work, small, "cuda") + genetree_steps(work, os.path.join(work, "x_cuda"), "cuda"),
+                      os.path.join(work, "p6_cuda"), os.path.join(work, "home_cuda"))
+    fg_done = time.perf_counter() - t0
     cpu_times, cpu_counters = cpu_run.result()
+    log(f"[phase 5] the card's cores ended their work {fg_done:.1f} s after the CPU run started; "
+        f"the CPU run ended at {time.perf_counter() - t0:.1f} s ({ctx['smi']})")
     a, b = read_files(os.path.join(work, "x_cpu")), read_files(os.path.join(work, "x_cuda"))
     n_inf = check_same_files(a, b)
     for want in ("cluster/clust.tsv", "tree/combined.fasta", "tree/iqtree.treefile", "tree_mafft/combined.fasta",
@@ -949,6 +1316,7 @@ def phase_crosscheck(work, small, cpu_run, t0):
     log("  step      CUDA s    CPU s")
     for k in cuda_times:
         log(f"  {k:12s} {cuda_times[k]:7.2f} {cpu_times[k]:8.2f}")
+    phase_cross6(ctx, work, cuda6, cpu_times, cpu_counters)
 
 
 def checks_beside_cpu_run(work):
@@ -969,7 +1337,14 @@ def checks_beside_cpu_run(work):
             max_err = phase_exact(ctx)
             nw_inputs = phase_nw(ctx)
             phylo_inputs = phase_phylo(ctx)
-            phase_crosscheck(work, small, cpu_run, t5)
+            # 6a in process in a thread of its own, beside 6e and phase 5's
+            # CUDA run (subprocesses): the card's two cores are mostly
+            # waiting on launches, and the window is set by the slower side
+            with ThreadPoolExecutor(1) as side:
+                cascade = side.submit(phase_cascade, ctx, work, t5)
+                phase_config(ctx, work)
+                phase_crosscheck(ctx, work, small, cpu_run, t5)
+                cascade.result()
         except BaseException:
             stop_cli_runs()  # or the pool would wait for the CPU run
             raise
@@ -987,13 +1362,19 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    # in-process phases (6a's E-value fit) keep their caches under `work`
+    os.environ["HOME"] = os.path.join(work, "home_inproc")
     try:
         ctx, max_err, nw_inputs, phylo_inputs = checks_beside_cpu_run(work)
         # from here on nothing runs beside the timed phases
+        log(f"[{time.perf_counter() - t_start:.1f} s] phases 3, 3b and 3c, timed ({ctx['smi']})")
         timing = phase_times(ctx)
         phase_nw_times(ctx, nw_inputs)
         phase_phylo_times(ctx, phylo_inputs)
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
         launches = phase_slice(work)
+        log(f"[{time.perf_counter() - t_start:.1f} s] phase 6c")
+        phase_genetree(ctx, work)
     finally:
         stop_cli_runs()
         shutil.rmtree(work, ignore_errors=True)
@@ -1009,7 +1390,7 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s ({ctx['smi']})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -22,6 +22,8 @@ names = [m.name for m in pkgutil.walk_packages(unicore_tpu_torch.__path__, "unic
          if not m.name.endswith("__main__")]
 for name in names:
     importlib.import_module(name)
+assert {"unicore_tpu_torch.align.cascade", "unicore_tpu_torch.phylo.genebatch",
+        "unicore_tpu_torch.modules.genetree", "unicore_tpu_torch.modules.config"} <= set(names)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n, m in sys.modules.items() if m is not None
@@ -36,7 +38,7 @@ def test_port_imports_without_jax_or_unicore_tpu():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 56
+    assert int(res.stdout.strip()) >= 60
 
 
 def test_host_tables_equal_jax():
@@ -121,14 +123,18 @@ def test_registry_msa_engines(port_env, name, mode, refine):  # noqa: F811
 
 @pytest.mark.parametrize("argv", [
     ["search", "db", "target", "out", "tmp"],
-    ["config", "--check"],
-    ["gene-tree", "in"],
+    ["easy-search", "in", "target", "out", "mock", "tmp"],
+    ["gene-tree", "in", "--tree-options=-m JTT -p parts.nex"],  # a partition file
 ])
-def test_cli_unported_subcommands_exit_typed(port_env, argv):  # noqa: F811
+def test_cli_unported_subcommands_exit_typed(port_env, argv, monkeypatch):  # noqa: F811
     from unicore_tpu_torch.cli import main
     from unicore_tpu_torch.runtime import errors
 
+    monkeypatch.chdir(port_env)
+    (port_env / "in" / "fasta").mkdir(parents=True)
+    before = sorted(p for p in port_env.rglob("*"))
     assert main(argv + ["-v", "0"]) == errors.ERR_MODULE_NOT_IMPLEMENTED
+    assert sorted(p for p in port_env.rglob("*")) == before  # nothing written
 
 
 def test_cli_unported_createdb_options(port_env, monkeypatch):  # noqa: F811
@@ -152,16 +158,20 @@ def test_cli_unported_createdb_options(port_env, monkeypatch):  # noqa: F811
     assert counters["stage.createdb.seconds"] > 0
 
 
-def test_cluster_cascade_not_yet_ported(port_env):  # noqa: F811
+def test_cluster_cascade_not_yet_ported(port_env, monkeypatch):  # noqa: F811
+    """The cascade is ported: above the threshold cluster_db takes it
+    (tests/test_torch_cascade.py holds it against the JAX package)."""
+    from unicore_tpu_torch.align import cascade
     from unicore_tpu_torch.align.engine import AlignParams
     from unicore_tpu_torch.io.seqdb import SeqDB
-    from unicore_tpu_torch.modules.cluster import cluster_db
-    from unicore_tpu_torch.runtime import errors
+    from unicore_tpu_torch.modules.cluster import CASCADE_THRESHOLD, cluster_db
 
+    calls = []
+    monkeypatch.setattr(cascade, "cascaded_cluster",
+                        lambda db, params: calls.append(len(db)) or ({0: [0, 1, 2]}, []))
     db = SeqDB(names=["a", "b", "c"], aa_seqs=["MKVLA"] * 3, ss_seqs=["DDDDD"] * 3)
-    with pytest.raises(errors.UnicoreError) as e:
-        cluster_db(db, AlignParams(), cascade_threshold=2)
-    assert e.value.err_code == errors.ERR_MODULE_NOT_IMPLEMENTED
+    assert cluster_db(db, AlignParams(), cascade_threshold=2) == ({0: [0, 1, 2]}, [])
+    assert calls == [3] and CASCADE_THRESHOLD == 5000
 
 
 def test_stage_writes_a_torch_profiler_trace(tmp_path, monkeypatch):

@@ -479,8 +479,12 @@ def test_tree_engine_small_inputs_and_typed_exits(port_env, tmp_path):  # noqa: 
         with pytest.raises(errors.UnicoreError) as e:
             eng.infer({"a": "ACDE", "b": "ACDF", "c": "ACDF"}, options=opts)
         assert e.value.err_code == errors.ERR_MODULE_NOT_IMPLEMENTED
-    for call in (lambda: eng.infer_batched([{"a": "AC"}]),
-                 lambda: eng.run_files([str(part)], [str(tmp_path / "o")])):
+    # the batched gene-tree entries too, before anything is written
+    msa_file = tmp_path / "g.fa"
+    msa_file.write_text(">a\nACDE\n>b\nACDF\n>c\nACDF\n")
+    for call in (lambda: eng.infer_batched([{"a": "AC"}], options=f"-m JTT -p {part}"),
+                 lambda: eng.run_files([str(msa_file)], [str(tmp_path / "o")],
+                                       options=f"-m JTT -q {part}")):
         with pytest.raises(errors.UnicoreError) as e:
             call()
         assert e.value.err_code == errors.ERR_MODULE_NOT_IMPLEMENTED

@@ -127,3 +127,32 @@ def test_tree_engine_infer_cuda_equals_cpu(tf32, schedule, options):
     assert_same_tree(tc, tg)
     _ll(llc, llg, BLEN_LL_RTOL)
     assert (ic["alpha"], ic["p_inv"]) == (ig["alpha"], ig["p_inv"])
+
+
+@pytest.mark.cuda
+def test_loglik_multi_cuda_equals_cpu(tf32):
+    """The gene-batched likelihood (phylo/genebatch.py) of three genes with
+    their own models, padded to one pattern bucket, on the card and on
+    the CPU."""
+    from unicore_tpu_torch.phylo import genebatch
+
+    need_cuda()
+    engines = {"cpu": [], "cuda": []}
+    cbs, bbs = [], []
+    for g, L in enumerate((300, 420, 500)):
+        msa = simulate_msa(np.random.RandomState(10 + g), 12, L)
+        names, seqs = list(msa), list(msa.values())
+        model = tm.SubstModel.build(
+            tm.ModelSpec.parse("JTT+F+I+G"), alpha=0.5 + 0.5 * g, p_inv=0.03 * g,
+            empirical_freqs=tl.empirical_frequencies(tl.msa_to_codes(names, seqs)))
+        for dev in engines:
+            engines[dev].append(tl.LikelihoodEngine(names, seqs, model, device=dev, pad_patterns_to=512))
+        cb, bb = _nni_batch(*_nj(msa), names)
+        cbs.append(cb[:16])
+        bbs.append(bb[:16])
+    cb, bb = np.stack(cbs), np.stack(bbs)
+    ref = genebatch.loglik_multi(engines["cpu"], cb, bb)
+    got = genebatch.loglik_multi(engines["cuda"], cb, bb)
+    assert torch.get_float32_matmul_precision() == "high"
+    _ll(ref, got)
+    _ll(np.stack([e.loglik_batch(c, b) for e, c, b in zip(engines["cpu"], cb, bb)]), got)

@@ -123,3 +123,33 @@ def test_candidate_pairs_exact_on_cuda_under_tf32():
     finally:
         torch.set_float32_matmul_precision(prev)
     assert out == ref and len(ref) > 0
+
+
+@pytest.mark.cuda
+def test_canopy_grams_exact_on_cuda_under_tf32():
+    """The cascade's canopy grams (0/1 bags, float32 products) are exact on
+    the card with TF32 allowed: the same representatives and members as on
+    the CPU, with both device grams (chunks of 256) and the numpy one."""
+    from unicore_tpu_torch.align import cascade
+
+    need_cuda()
+    rng = np.random.RandomState(4)
+    letters = np.array(list("ARNDCQEGHILKMFPSTWYV"))
+    aa = []
+    for _ in range(120):
+        base = rng.choice(letters, rng.randint(80, 600))
+        for _ in range(3):
+            s = base.copy()
+            pos = rng.randint(0, len(s), len(s) // 8)
+            s[pos] = rng.choice(letters, len(pos))
+            aa.append("".join(s))
+    aa += ["".join(rng.choice(letters, rng.randint(30, 70))) for _ in range(150)]
+    ss = MockProstT5().predict(aa)
+    ref = cascade.canopy_assign(aa, ss, chunk=256, device="cpu")
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        out = cascade.canopy_assign(aa, ss, chunk=256, device="cuda")
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert out == ref and len(ref[0]) < len(aa)

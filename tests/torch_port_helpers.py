@@ -182,3 +182,78 @@ def assert_same_tree(jt, tt, supported=True):
         if supported and len(k) > 1 and sup is not None and tsup is not None:
             assert 0.0 <= tsup <= 100.0, (k, tsup)
             assert length <= RESOLVED or abs(tsup - sup) <= SUPPORT_POINTS, (k, sup, tsup)
+
+
+# Gene trees, port against JAX (tests/test_torch_genetree*.py)
+GENE_LL_RTOL = 1e-5
+
+
+def gene_msa(rng, n_taxa, L, mut=0.25):
+    """tests/test_genetree_batched.py's chain-evolved gene MSA."""
+    base = rng.choice(list(LETTERS), L)
+    msa = {}
+    prev = base
+    for t in range(n_taxa):
+        s = prev.copy()
+        for i in range(L):
+            if rng.rand() < mut:
+                s[i] = rng.choice(list(LETTERS))
+        msa[f"sp{t}"] = "".join(s)
+        prev = s
+    return msa
+
+
+def write_msa(path, msa):
+    with open(path, "w") as f:
+        for n, s in msa.items():
+            f.write(f">{n}\n{s}\n")
+
+
+def _loglik_of(newick, msa, info, package):
+    """The likelihood of a written tree under one package's engine, with
+    the model the report names (alpha, p_inv)."""
+    if package == "jax":
+        from unicore_tpu.phylo import likelihood as L, models as M, newick as N
+        kw = {}
+    else:
+        from unicore_tpu_torch.phylo import likelihood as L, models as M, newick as N
+        kw = {"device": "cpu"}
+    names, seqs = list(msa), list(msa.values())
+    model = M.SubstModel.build(M.ModelSpec.parse(info["model"]),
+                               empirical_freqs=L.empirical_frequencies(L.msa_to_codes(names, seqs)),
+                               alpha=info["alpha"], p_inv=info["p_inv"])
+    eng = L.LikelihoodEngine(names, seqs, model, **kw)
+    return eng.loglik(*L.tree_to_arrays(L.make_root_binary(N.parse_newick(newick)), names))
+
+
+def assert_same_gene_tree(msa, ref, got, supported):
+    """The port's (tree, lnL, info) of one gene against JAX's.  The same
+    topology (RF 0); every report field but lnL and seconds equal; each
+    package's lnL equal, within GENE_LL_RTOL, to either package's
+    likelihood of its final tree; then either lnL within GENE_LL_RTOL and
+    lengths and supports as assert_same_tree, or the port's lnL the
+    higher.  The second case is float32 noise, not a port fault: on a
+    branch of ~1e-7 the gradient of the log-length is noise of the size
+    of its true value (the entries of P(t) = U exp(Lt) U^-1 are
+    differences of O(1) terms), so the Adam loops of the two packages may
+    leave such a branch on different sides, and the same topology ends in
+    two optima of its branch lengths (tests/test_genetree_batched.py's
+    first gene: JAX keeps a leaf branch at 1e-7, the port opens it to
+    0.033, 1.31 lnL higher).  Returns True where both ended in one
+    optimum."""
+    from unicore_tpu_torch.phylo.newick import parse_newick, rf_distance
+
+    (jt, jll, ji), (tt, tll, ti) = ref, got
+    assert rf_distance(parse_newick(jt.to_newick()), tt) == 0
+    drop = ("lnL", "seconds")
+    assert {k: v for k, v in ti.items() if k not in drop} == \
+        {k: v for k, v in ji.items() if k not in drop}
+    for newick, ll in ((jt.to_newick(), jll), (tt.to_newick(), tll)):
+        for package in ("jax", "port"):
+            other = _loglik_of(newick, msa, ti, package)
+            assert abs(other - ll) <= GENE_LL_RTOL * abs(ll), (package, ll, other)
+    if abs(tll - jll) <= GENE_LL_RTOL * abs(jll):
+        assert_same_tree(jt, tt, supported=supported)
+        return True
+    assert tll > jll, (jll, tll)
+    return False

@@ -3,12 +3,13 @@ subcommands ported so far.
 
 `build_parser` and `resolve` are copies of unicore_tpu's (the same
 subcommands, flags, defaults and pre-wired paths), so a command line
-means the same to both packages.  `run` dispatches `createdb`, `cluster`,
-`profile`, `tree` (MSA, supermatrix and tree inference with the iqtree,
-fasttree and raxml-ng schedules), `easy-core` and `version`; the other
-subcommands, and tree options naming a partition file (-p/-q), exit with
-the typed "not yet ported" error (ERR_MODULE_NOT_IMPLEMENTED) before
-anything is written.
+means the same to both packages.  `run` dispatches `createdb`, `cluster`
+(the cascade above 5,000 sequences), `profile`, `tree` (MSA, supermatrix
+and tree inference with the iqtree, fasttree and raxml-ng schedules),
+`gene-tree` (batched per-gene inference), `config`, `easy-core` and
+`version`; `search` and `easy-search`, and tree options naming a
+partition file (-p/-q), exit with the typed "not yet ported" error
+(ERR_MODULE_NOT_IMPLEMENTED) before anything is written.
 
 The device is chosen in runtime/device.py: CUDA, unless
 UNICORE_TPU_TORCH_DEVICE=cpu asks for the CPU.  With
@@ -298,7 +299,7 @@ def resolve(ns: argparse.Namespace) -> SimpleNamespace:
     return a
 
 
-PORTED = ("createdb", "cluster", "profile", "tree", "easy-core", "version")
+PORTED = ("createdb", "cluster", "profile", "tree", "gene-tree", "config", "easy-core", "version")
 
 
 def run(args: SimpleNamespace) -> None:
@@ -321,10 +322,11 @@ def run(args: SimpleNamespace) -> None:
         err.error(err.ERR_MODULE_NOT_IMPLEMENTED,
                   f"'{cmd}' is not yet ported to unicore_tpu_torch "
                   f"(ported: {', '.join(PORTED)})")
-    from unicore_tpu_torch.modules import cluster, createdb, profile, tree
+    from unicore_tpu_torch.modules import cluster, config, createdb, genetree, profile, tree
     from unicore_tpu_torch.workflow import easy_core
     module = {"createdb": createdb, "cluster": cluster, "profile": profile,
-              "tree": tree, "easy-core": easy_core}[cmd]
+              "tree": tree, "gene-tree": genetree, "config": config,
+              "easy-core": easy_core}[cmd]
     if cmd == "easy-core":
         tree.check_ported(args)  # before the stages ahead of tree write anything
     with profiling.stage(cmd):

@@ -10,8 +10,9 @@ Pipeline contract of modules/cluster.rs:9-83:
 Counterpart of unicore_tpu/modules/cluster.py.  Compute: hashed k-mer
 prefilter (one gram product on the device), batched prefix-scan
 Smith-Waterman (the Hopper kernel of ops/sw_cuda.py on CUDA, its plain
-version on the CPU), coverage/E-value gating, greedy set cover.  The
-cascade for more than CASCADE_THRESHOLD sequences is not yet ported.
+version on the CPU), coverage/E-value gating, greedy set cover.  Above
+CASCADE_THRESHOLD sequences the linclust-style cascade of
+align/cascade.py takes over (canopy, verification, representative round).
 """
 
 from __future__ import annotations
@@ -40,9 +41,14 @@ def cluster_db(db: SeqDB, params: AlignParams, cascade_threshold: int = CASCADE_
         err.error(err.ERR_DB_INVALID, "3Di sequences required for structural clustering")
 
     if n > cascade_threshold:
-        err.error(err.ERR_MODULE_NOT_IMPLEMENTED,
-                  f"{n} sequences need the cascade (more than {cascade_threshold}); "
-                  "cascade not yet ported to unicore_tpu_torch")
+        from unicore_tpu_torch.align.cascade import cascaded_cluster
+        msg.println_message(f"Using cascaded clustering for {n} sequences", 3)
+        profiling.add_counter("cluster.sequences", n)
+        clusters, kept = cascaded_cluster(db, params)
+        profiling.add_counter("cluster.hits", len(kept))
+        profiling.add_counter("cluster.clusters", len(clusters))
+        msg.println_message(f"{len(clusters)} clusters from {n} sequences", 3)
+        return clusters, kept
 
     msg.print_message("Prefiltering candidate pairs...", 3)
     pairs = candidate_pairs(

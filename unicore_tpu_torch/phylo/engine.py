@@ -17,10 +17,11 @@ likelihood core is shared.
 
 Counterpart of unicore_tpu/phylo/engine.py: the same schedules, option
 parsing, model optimization, bootstrap and output files, over the port's
-LikelihoodEngine on the engine's device (runtime/device.py).  Not ported
-yet, each a typed ERR_MODULE_NOT_IMPLEMENTED raised before anything is
-written: partitioned models (`-p`/`-q`, phylo/partition.py) and the
-batched gene-tree entries `infer_batched`/`run_files` (`gene-tree`).
+LikelihoodEngine on the engine's device (runtime/device.py), and the
+batched gene-tree entries `infer_batched`/`run_files` (phylo/genebatch.py:
+genes grouped by taxa count and pattern bucket, NNI in lockstep).  Not
+ported yet: partitioned models (`-p`/`-q`, phylo/partition.py), a typed
+ERR_MODULE_NOT_IMPLEMENTED raised before anything is written.
 """
 
 from __future__ import annotations
@@ -74,11 +75,6 @@ def check_ported_options(options: str) -> None:
                   "partitioned models (-p/-q) are not yet ported to unicore_tpu_torch")
 
 
-def _not_ported(what: str) -> None:
-    err.error(err.ERR_MODULE_NOT_IMPLEMENTED,
-              f"{what} (gene-tree) is not yet ported to unicore_tpu_torch")
-
-
 class TreeEngine:
     name = "torch-phylo"
 
@@ -106,17 +102,8 @@ class TreeEngine:
         )
         names = list(msa.keys())
         seqs = [msa[n] for n in names]
-        if len(names) < 2:
-            t = Node()
-            for n in names:
-                t.add(Node(n, 0.0))
-            return t, 0.0, {"n_taxa": len(names)}
-        if len(names) == 2:
-            D = protein_distances(names, seqs)
-            t = Node()
-            t.add(Node(names[0], D[0, 1] / 2))
-            t.add(Node(names[1], D[0, 1] / 2))
-            return t, 0.0, {"n_taxa": 2}
+        if len(names) < 3:
+            return self._trivial_tree(names, seqs)
 
         spec = ModelSpec.parse(model_str)
         codes = msa_to_codes(names, seqs)
@@ -188,7 +175,7 @@ class TreeEngine:
 
     # ------------------------------------------------------------------
     def _parse_opts(self, options, model_str, n_boot, seed, n_starts, max_nni_rounds):
-        """Per-schedule option resolution."""
+        """Per-schedule option resolution (shared by infer/infer_batched)."""
         opts = _parse_tokens(options)
         if self.schedule == "iqtree":
             model_str = model_str or opts.get("-m", "JTT+F+I+G")
@@ -208,9 +195,136 @@ class TreeEngine:
         return opts, model_str, n_boot, seed, n_starts, max_nni_rounds
 
     # ------------------------------------------------------------------
-    def infer_batched(self, msas: List[Dict[str, str]], options: str = "", **_) -> list:
-        """Batched gene-tree inference (phylo/genebatch.py): not yet ported."""
-        _not_ported("batched gene-tree inference (TreeEngine.infer_batched)")
+    def _trivial_tree(self, names: List[str], seqs: List[str]) -> Tuple[Node, float, Dict]:
+        if len(names) < 2:
+            t = Node()
+            for n in names:
+                t.add(Node(n, 0.0))
+            return t, 0.0, {"n_taxa": len(names)}
+        D = protein_distances(names, seqs)
+        t = Node()
+        t.add(Node(names[0], D[0, 1] / 2))
+        t.add(Node(names[1], D[0, 1] / 2))
+        return t, 0.0, {"n_taxa": 2}
+
+    # ------------------------------------------------------------------
+    def infer_batched(
+        self,
+        msas: List[Dict[str, str]],
+        options: str = "",
+        seed: int = 12345,
+        n_starts: int = 1,
+        max_nni_rounds: int = 20,
+        blen_steps: int = 150,
+    ) -> List[Tuple[Node, float, Dict]]:
+        """Batched gene-tree inference (genetree.rs:113-143 hot loop).
+
+        Genes are grouped by (taxa count, pattern bucket); each group runs
+        its NNI searches in LOCKSTEP with cross-gene candidate batching
+        (phylo/genebatch.py), its engines padded to the bucket.  Big genes
+        (>= 48 taxa) take the per-gene `infer` (its incremental
+        partial-CLV path wins there).  Per gene: the same search schedule,
+        accept logic, model optimization and bootstrap as solo `infer`,
+        and the report's `n_patterns` is the unpadded count.  Counters:
+        `phylo.genes`, `phylo.gene_groups`, and `phylo.seconds` per group
+        (bootstrap included)."""
+        from unicore_tpu_torch.phylo.genebatch import lockstep_optimize, pattern_bucket
+        from unicore_tpu_torch.phylo.likelihood import compress_patterns
+
+        check_ported_options(options)
+        _, model_str, n_boot, seed, n_starts, max_nni_rounds = self._parse_opts(
+            options, None, None, seed, n_starts, max_nni_rounds
+        )
+        results: List[Optional[Tuple[Node, float, Dict]]] = [None] * len(msas)
+
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        prepped: Dict[int, tuple] = {}
+        for g, msa in enumerate(msas):
+            names = list(msa.keys())
+            seqs = [msa[n] for n in names]
+            if len(names) < 3:
+                results[g] = self._trivial_tree(names, seqs)
+                continue
+            if len(names) >= 48:
+                results[g] = self.infer(
+                    msa, options=options, seed=seed, n_starts=n_starts,
+                    max_nni_rounds=max_nni_rounds, blen_steps=blen_steps,
+                )
+                continue
+            codes = msa_to_codes(names, seqs)
+            P = compress_patterns(codes)[0].shape[1]
+            key = (len(names), pattern_bucket(P))
+            groups.setdefault(key, []).append(g)
+            prepped[g] = (names, seqs, codes)
+        profiling.add_counter("phylo.genes", len(msas))
+        profiling.add_counter("phylo.gene_groups", len(groups))
+
+        spec = ModelSpec.parse(model_str)
+        for (n, bucket), gidx in sorted(groups.items()):
+            t0 = time.time()
+            engines, searches, starts = [], [], []
+            specs_freqs = []
+            for g in gidx:
+                names, seqs, codes = prepped[g]
+                freqs = empirical_frequencies(codes)
+                model = SubstModel.build(
+                    spec, empirical_freqs=freqs, alpha=1.0,
+                    p_inv=0.02 if spec.plus_i else 0.0,
+                )
+                eng = LikelihoodEngine(names, seqs, model, device=self.device,
+                                       pad_patterns_to=bucket)
+                engines.append(eng)
+                searches.append(TreeSearch(eng, seed=seed))
+                D = protein_distances(names, seqs)
+                starts.append(neighbor_joining(D, names))
+                specs_freqs.append(freqs)
+            msg.println_message(
+                f"  gene group: {len(gidx)} genes, {n} taxa, bucket {bucket}", 4
+            )
+            res = lockstep_optimize(
+                engines, starts,
+                max_rounds=max_nni_rounds, blen_steps=blen_steps,
+            )
+            if spec.plus_g or spec.plus_i:
+                # per-gene model optimization, then one more lockstep pass
+                for i, g in enumerate(gidx):
+                    self._optimize_model(
+                        engines[i], searches[i], spec, specs_freqs[i], res[i][0]
+                    )
+                res = lockstep_optimize(
+                    engines, [r[0] for r in res],
+                    max_rounds=max_nni_rounds, blen_steps=blen_steps,
+                )
+            for s in range(1, n_starts):
+                perturbed = [
+                    searches[i].perturb(res[i][0], n_moves=2 + s)
+                    for i in range(len(gidx))
+                ]
+                res2 = lockstep_optimize(
+                    engines, perturbed,
+                    max_rounds=max_nni_rounds, blen_steps=blen_steps,
+                )
+                res = [r2 if r2[1] > r[1] else r for r, r2 in zip(res, res2)]
+            secs = time.time() - t0
+            for i, g in enumerate(gidx):
+                best_tree, best_ll = res[i]
+                eng = engines[i]
+                info = {
+                    "n_taxa": n,
+                    "n_sites": eng.L,
+                    "n_patterns": eng.n_patterns_real,
+                    "n_partitions": 1,
+                    "lnL": best_ll,
+                    "alpha": eng.model.alpha,
+                    "p_inv": eng.model.p_inv,
+                    "model": model_str,
+                    "seconds": secs / len(gidx),
+                }
+                if n_boot and n >= 4:
+                    best_tree = self._bootstrap(eng, best_tree, n_boot, seed)
+                results[g] = (unroot(best_tree), best_ll, info)
+            profiling.add_counter("phylo.seconds", time.time() - t0)
+        return results  # type: ignore[return-value]
 
     # ------------------------------------------------------------------
     def _optimize_model(self, engine, search, spec, freqs, tree) -> SubstModel:
@@ -264,10 +378,19 @@ class TreeEngine:
         tree, ll, info = self.infer(msa, options=options)
         return self._write_outputs(tree, info, output_dir)
 
-    def run_files(self, msa_fastas: List[str], output_dirs: List[str],
-                  options: str = "", threads: int = 0) -> List[str]:
-        """Batched file-level entry over `infer_batched`: not yet ported."""
-        _not_ported("batched gene-tree inference (TreeEngine.run_files)")
+    def run_files(
+        self, msa_fastas: List[str], output_dirs: List[str],
+        options: str = "", threads: int = 0,
+    ) -> List[str]:
+        """Batched file-level entry: one `infer_batched` call over every
+        gene MSA (lockstep search), per-gene outputs in the same
+        per-builder conventions as `run_file`."""
+        msas = [fasta.read_fasta(p) for p in msa_fastas]
+        results = self.infer_batched(msas, options=options)
+        return [
+            self._write_outputs(tree, info, od)
+            for (tree, _ll, info), od in zip(results, output_dirs)
+        ]
 
     def _write_outputs(self, tree: Node, info: Dict, output_dir: str) -> str:
         os.makedirs(output_dir, exist_ok=True)

@@ -185,7 +185,7 @@ def _in_full_fp32(fn):
 def _blockdiag_pmats(blens, rates, eigvals, U, Uinv):
     """(..., C*20, C*20) block-diagonal transition matrices, one per entry
     of `blens` (any leading shape), categories stacked on the diagonal."""
-    C = rates.shape[0]
+    C = rates.shape[-1]
     rt = blens[..., None] * rates                        # (..., C)
     expl = torch.exp(rt[..., None] * eigvals)            # (..., C, 20)
     Pm = (U * expl[..., None, :]) @ Uinv                 # (..., C, 20, 20)
@@ -233,21 +233,21 @@ def _site_loglik_tree(children: np.ndarray, blens, tips, eigvals, U, Uinv, pi,
     return _root_site_loglik(clvs[-1], scales[-1], pi, props, C)
 
 
-def _clv_pass_batch(children_b, blens_b, tips, eigvals, U, Uinv, rates):
-    """Postorder CLV pass over a batch of B trees (no autograd): returns
-    (buf (B, 2n-1, P, C*20), logscale (B, 2n-1, P, C)).
+def _clv_pass(children_b, PT, leaves, C: int):
+    """Postorder CLV pass over a batch of B trees (no autograd) from their
+    transposed transition matrices PT (B, 2n-1, C*20, C*20) and the leaf
+    CLVs `leaves`, (n, P, C*20) shared by every tree or (B, n, P, C*20)
+    one per tree: returns (buf (B, 2n-1, P, C*20), logscale (B, 2n-1, P, C)).
 
     Internal node i is written at the same index for every candidate, so
     each step is one slice write; the children differ per candidate and
     are gathered from the buffer."""
-    n, P = tips.shape[0], tips.shape[1]
-    C = rates.shape[0]
+    n, P = leaves.shape[-3], leaves.shape[-2]
     B = children_b.shape[0]
-    PT = _blockdiag_pmats(blens_b, rates, eigvals, U, Uinv).transpose(-1, -2)
-    buf = tips.new_empty((B, 2 * n - 1, P, C * 20))
-    buf[:, :n] = tips.repeat(1, 1, C)
-    logscale = tips.new_zeros((B, 2 * n - 1, P, C))
-    ar = torch.arange(B, device=tips.device)
+    buf = leaves.new_empty((B, 2 * n - 1, P, C * 20))
+    buf[:, :n] = leaves
+    logscale = leaves.new_zeros((B, 2 * n - 1, P, C))
+    ar = torch.arange(B, device=leaves.device)
     for idx in range(n - 1):
         l, r = children_b[:, idx, 0], children_b[:, idx, 1]
         clv, ls = _node_update(torch.bmm(buf[ar, l], PT[ar, l]),
@@ -256,6 +256,13 @@ def _clv_pass_batch(children_b, blens_b, tips, eigvals, U, Uinv, rates):
         buf[:, n + idx] = clv
         logscale[:, n + idx] = ls
     return buf, logscale
+
+
+def _clv_pass_batch(children_b, blens_b, tips, eigvals, U, Uinv, rates):
+    """_clv_pass of B trees over one alignment's tips (n, P, 20)."""
+    C = rates.shape[0]
+    PT = _blockdiag_pmats(blens_b, rates, eigvals, U, Uinv).transpose(-1, -2)
+    return _clv_pass(children_b, PT, tips.repeat(1, 1, C), C)
 
 
 def _site_loglik_batch_core(children_b, blens_b, tips, eigvals, U, Uinv, pi,
@@ -297,6 +304,7 @@ def subsampled_engine(eng, k: int = SEARCH_PATTERN_CAP, seed: int = 12345):
     sub.L = eng.L
     sub.device = eng.device
     sub.patterns = eng.patterns[:, idx]
+    sub.n_patterns_real = len(idx)
     sub.weights = (cnt * (wsum / k)).astype(np.float32)
     sub.tips = eng.tips[:, torch.as_tensor(idx, device=eng.device), :]
     sub.w = torch.as_tensor(sub.weights, device=eng.device)
@@ -444,13 +452,27 @@ class LikelihoodEngine:
     """Holds device-resident alignment tensors + model; evaluates trees.
 
     `device`: where the tensors live and the products run; None resolves
-    through runtime/device.py (CUDA unless UNICORE_TPU_TORCH_DEVICE=cpu)."""
+    through runtime/device.py (CUDA unless UNICORE_TPU_TORCH_DEVICE=cpu).
+    `pad_patterns_to`: pad the pattern axis to this many columns with
+    zero-weight all-unknown columns (code 20), which leave lnL unchanged,
+    so the engines of a gene group share one pattern width and stack into
+    one batched call (phylo/genebatch.py).  `n_patterns_real` keeps the
+    unpadded count."""
 
-    def __init__(self, names: List[str], seqs: List[str], model: SubstModel, device=None):
+    def __init__(self, names: List[str], seqs: List[str], model: SubstModel, device=None,
+                 pad_patterns_to: int = 0):
         self.device = device_mod.resolve(device)
         self.names = list(names)
         codes = msa_to_codes(names, seqs)
         patterns, weights = compress_patterns(codes)
+        self.n_patterns_real = patterns.shape[1]
+        if pad_patterns_to > patterns.shape[1]:
+            padn = pad_patterns_to - patterns.shape[1]
+            patterns = np.concatenate(
+                [patterns, np.full((patterns.shape[0], padn), 20, patterns.dtype)],
+                axis=1,
+            )
+            weights = np.concatenate([weights, np.zeros(padn, weights.dtype)])
         self.n = len(names)
         self.patterns = patterns
         self.weights = weights.astype(np.float32)
