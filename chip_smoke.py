@@ -13,7 +13,8 @@ failure, and no phase is skipped:
    gapped with gap_window 64 and 0, and ungapped; bias off, on and at
    exactly +-bias_clip_bound; gaps 100/10 and 28/3; (B, L) in (512, 128),
    (512, 256), (512, 512), (512, 1024), (192, 512) and (48, 2048), with
-   ragged lengths and planted homologies.  Then the edges of the kernel's
+   ragged lengths and planted homologies, half the mode and gap settings
+   per shape and bias, the other half on the next.  Then the edges of the kernel's
    mapping (EDGE_SHAPES, B x Lt <= 64 x 4,096, Lq != Lt): every case of
    synthetic.sw_edge_pairs (lengths of 1, ties, a gap bonus, a bias past
    2^24, ...) and windows 0, 1, 2, 3, 48, 64, 100, Lt, 2*Lt and ungapped,
@@ -32,9 +33,10 @@ failure, and no phase is skipped:
    library_ms is null.
 3b. The MSA's NW forward (ops/nw_device.py, PyTorch ops) on the card
    against the same function on the CPU, bit-identical on (bits, end_i,
-   end_j, score): buckets 64, 512 and 2,048, batches of 1 and 64, gaps
-   2816/256 (random scores) and 1100/100 (all-zero or constant scores:
-   ties everywhere; not at 2,048 x 64), ragged lengths down to 1.  Then its time per dispatch at the merge pipeline's
+   end_j, score): buckets 64, 512 and 2,048, batches of 1 and 64 (16 at
+   2,048), gaps 2816/256 (random scores) and 1100/100 (all-zero or
+   constant scores: ties everywhere; not at 2,048 x 16), ragged lengths
+   down to 1.  Then its time per dispatch at the merge pipeline's
    full batches (64 pairs at bucket 512, 16 at 2,048), and the device's
    busy time inside one dispatch from a torch.profiler trace; the fused
    merge's count products (64 x 512 x 512) and the guide gram (2,048 x
@@ -42,18 +44,30 @@ failure, and no phase is skipped:
 3c. The likelihood (phylo/likelihood.py, PyTorch ops) on the card against
    the same calls on the CPU, with `torch.set_float32_matmul_precision
    ("high")` set, so the engine's full-float32 guard is what keeps TF32
-   out: at 20 taxa x 8,192 columns (JTT+F+I+G) `loglik_batch` on a
-   64-candidate NNI batch, `site_loglik_batch` on 16 of them,
-   `loglik_nni_moves`, a 30-step `optimize_blens` and the pattern-chunked
+   out: at 20 taxa x 8,192 columns (JTT+F+I+G) `loglik_batch` and
+   `site_loglik_batch` on 16 candidates of a 64-candidate NNI batch,
+   `loglik_nni_moves`, a 10-step `optimize_blens` and the pattern-chunked
    path (chunks forced to 2,048 patterns; fewer candidates and steps),
-   and the incremental path at 64 taxa; the CPU side is what costs.  Tolerances as in
+   and the incremental path at 64 taxa x 1,000 columns; the CPU side is
+   what costs.  Tolerances as in
    tests/test_torch_phylo.py: lnL within LL_RTOL relative, sites within
    SITE_ATOL + SITE_RTOL |s|, after Adam lnL within BLEN_LL_RTOL and
    each length within BLEN_ATOL + BLEN_RTOL len.  Then ms per
-   `loglik_batch` call and per Adam step, the device-busy share of Adam
+   `loglik_batch` call (on the CPU for 16 candidates) and per Adam step,
+   the device-busy share of Adam
    steps from a torch.profiler trace, and the bound of one `loglik_batch`:
    max(flops of its products at C x 20 x 20 per category and node /
    67 TFLOP/s FP32, bytes read and written once / 3.35 TB/s).
+3d. The m8 traceback's DP (ops/sw_bits.py sw_forward_bits, PyTorch ops)
+   on the card against the same function on the CPU, bit-identical on
+   (bits, best_i, best_j, score): buckets 64, 512 and 2,048, batches of 1
+   and the full batches sw_traceback_batch packs (64, 64, 8), gaps 100/10
+   and 30/5 (one of them, alternating, at 2,048 x 8), random windows with
+   a planted diagonal, gap windows that force E/F states, and tie windows
+   (scores in {-1, 0, 1}), sizes ragged down to 1 x 1.  Then its time per
+   dispatch at the full batches of buckets 512 and 1,024, its CPU time,
+   and the device's busy time inside one dispatch from a torch.profiler
+   trace.
 4. The main path end to end at a real size: 20 synthetic proteomes x 120
    proteins (2,400 sequences, under the 5,000-sequence cascade
    threshold), gene families evolved along a random species tree with
@@ -76,7 +90,7 @@ failure, and no phase is skipped:
    tree.chk "1", and
    a normalized RF distance to the tree the proteomes evolved along
    (synthetic.species_tree) of at most RF_FLOOR.
-5. Cross-check on 5 species x 40 proteins (one family longer than 1,024:
+5. Cross-check on 5 species x 12 proteins (one family longer than 1,024:
    the banded path and the 2,048 NW bucket): `easy-core` with its
    defaults, then `tree -n -A mafft` and `tree -n -A mafft-linsi` on its
    outputs, and `tree -T fasttree` and `tree -T raxml-ng` on copies of its
@@ -86,25 +100,28 @@ failure, and no phase is skipped:
    outputs parsed: the same topology (RF 0), branch lengths within
    BLEN_ATOL + BLEN_RTOL len, supports within SUPPORT_POINTS, lnL within
    BLEN_LL_RTOL, every other report line equal but `seconds`.
-6. The slice's other paths:
-   6a. The cascade at phase 4's scale: phase 4's proteomes (seed 7, 20 x
-       120) through `createdb mock` into a directory of their own, then
-       `cluster_db(..., cascade_threshold=CASCADE_THRESHOLD)` in process on
-       CUDA.  Requires every sequence in exactly one cluster, purity of at
+6. The paths of the cascade and gene-tree slice, at cut depths:
+   6a. The cascade on 20 x CASCADE_PER_SPECIES proteomes of phase 4's
+       generator and seed (1,200 sequences) through `createdb mock` into a
+       directory of their own, then `cluster_db(...,
+       cascade_threshold=CASCADE_THRESHOLD)` in process on CUDA.  Requires every sequence in exactly one cluster, purity of at
        least PURITY_FLOOR and both kernel modes launched during the call;
        prints the canopy representatives, the verify pairs, the
        representative round's pairs and edges, whether its empirical null
        was fitted (below 5,000 pairs it is not), the clusters and the time.
-   6b. The cascade at CROSS_CASCADE_THRESHOLD on phase 5's database, on
-       CUDA and inside phase 5's CPU run: clust.tsv byte-identical.
+   6b. The cascade at CROSS_CASCADE_THRESHOLD on 5 x
+       CROSS_CASCADE_PER_SPECIES proteomes of phase 5's seed (80
+       sequences), on CUDA and inside phase 5's CPU run: clust.tsv
+       byte-identical, the canopy merging some sequences and the
+       representative round run.
    6c. `gene-tree` with its defaults (iqtree -m JTT+F+I+G -B 1000) on
-       GENETREE_GENES core genes of phase 4, the first two of them (in name
-       order) to share a (taxa, pattern bucket) lockstep group and the
-       first others: per gene a tree over its taxa, supports in [0, 100]
+       GENETREE_GENES core gene of phase 4, the first of the first two (in
+       name order) to share a (taxa, pattern bucket) lockstep group: per
+       gene a tree over its taxa, supports in [0, 100]
        (one split may have none), a finite lnL, the unpadded pattern count
        in iqtree.iqtree; seconds and Adam steps per gene.  Beside it, on
-       other cores, the group's lockstep inference (fasttree, -gamma, in
-       process) against a solo inference of each gene (a process each):
+       other cores, the two genes' lockstep inference (fasttree, -gamma,
+       in process) against a solo inference of each gene (a process each):
        the same splits but those on a branch of at most RESOLVED in the
        tree that has them (RF is printed), lnL within SOLO_LL_RTOL.  Then
        the slice's new device work timed alone: a canopy gram and one
@@ -114,18 +131,51 @@ failure, and no phase is skipped:
        run: the outputs compared as phase 5 compares its trees.
    6e. `config --check` on the card: exit 0, CUDA with 1 device and the
        card's name, every engine ok but mmseqs (no factory, as in JAX).
+7. The search path and partitioned models:
+   7a. `search` at phase 4's full width on CUDA (a CLI subprocess with a
+       fresh HOME, so the E-value fit runs on the kernel): a reference DB
+       of one sequence per core gene of phase 4 (its cluster
+       representative's AA and mock 3Di, named AF-<name>-F1) against
+       phase 4's 2,400-sequence proteome DB with search's default
+       options, then `profile` on its m8 (in process: host code).  Requires every reference's
+       self hit with fident 1.000, mismatch 0 and gapopen 0, the m8
+       grouped by reference, both kernel modes launched, search.chk "1"
+       and, where a reference is longer than 1,024, the banded traceback
+       taken.  Prints the candidate pairs, the hits, the traceback
+       windows of each route, the seconds of the search and of
+       traceback_fill, and the core genes profile finds.
+   7b. `easy-search` with its defaults on phase 5's proteomes against a
+       reference DB made as 7a's from phase 5's core genes, on CUDA and
+       inside phase 5's CPU run: every file before inference
+       byte-identical, the tree files compared as phase 5 compares them.
+   7c. `tree -m JTT+F+I+G -B 1000 -p combined.fasta.partitions` on a copy
+       of phase 5's supermatrix (the skip path), on CUDA and inside phase
+       5's CPU run: compared as phase 5 compares its trees, n_partitions
+       in iqtree.iqtree the partition file's line count.
+   7d. The partitioned engine at phase 4's full width (20 taxa, its
+       partition file, the whole supermatrix, phase 4's final tree) on the
+       card against the CPU under TF32 settings: loglik within LL_RTOL,
+       site_loglik within SITE_ATOL + SITE_RTOL |s|; ms per call and per
+       Adam step of a PARTITION_ADAM_STEPS-step optimize_blens, its
+       device-busy share, each call's bound as phase 3c's on the padded
+       shapes, and an extrapolation (marked so) of a full `tree -p -B
+       1000` at this size from phase 4's counts.
 
-Order of the run: phase 5's CPU run (6b's CPU run beside its easy-core,
-6d's after its tree runs) starts first, on every core but two, and goes
-on beside phase 1, the checks of phases 2, 3b and 3c, then 6a (in a
-thread of its own) beside 6e and phase 5's CUDA run followed by 6b's and
-6d's, all on those two.  Once it has ended, phase 3, the times of phases
-3b and 3c and phase 4 run with nothing beside them, then 6c.
+Order of the run: phase 5's CPU run (6b's CPU run beside its easy-core;
+then three sides, each in one process: 7c and 6d; tree -T raxml-ng and
+tree -T fasttree; the two other aligners and 7b) starts first, on every
+core but two, and goes on beside phase 1, the checks of phases 2, 3b, 3c
+and 3d, then 6a and 6e (in a thread of their own) beside phase 5's CUDA
+run (6b beside its easy-core; then two sides, each in one process:
+raxml-ng, 7c and 6d; the rest and 7b), all on those two.  Once it has
+ended, phase 3 and the times of phases 3b, 3c and 3d, phase 4, 7a and 7d
+run with nothing beside them, then 6c.  Each phase's start and end on
+the script's clock is printed as a "[clock]" line.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
-kernel mode: launches in phase 4, times and bound at (512, 512), the
-main path's most common bucket; 6a prints the cascade's launches); the
-last line is
+kernel mode: launches in phase 4 and 7a, times and bound at (512, 512),
+the main path's most common bucket; 6a prints the cascade's launches);
+the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero before
 printing any result.  Nothing here imports JAX or unicore_tpu.
 """
@@ -172,29 +222,42 @@ EDGE_WINDOWS = [0, 1, 2, 3, 48, 64, 100]
 # sequences: at 3,840, 1 - 0.0061 * 3840 / 489 = 0.952; at 2,400, 0.970.
 PURITY_FLOOR = 0.95
 N_SPECIES, PER_SPECIES = 20, 120
-NW_CHECKS = [(64, 1), (64, 64), (512, 1), (512, 64), (2048, 1), (2048, 64)]  # (bucket, batch)
+NW_CHECKS = [(64, 1), (64, 64), (512, 1), (512, 64), (2048, 1), (2048, 16)]  # (bucket, batch)
 NW_GAPS = [(2816, 256), (1100, 100)]  # the MSA engines' 11/1 in QUANT units; another pair
 NW_TIMED = [(512, 64), (2048, 16)]  # full batches of the merge pipeline's caps
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, FP32 outside the tensor cores (data sheet)
 PHYLO = dict(n=20, L=8192, batch=64, model="JTT+F+I+G", alpha=0.7, p_inv=0.05, seed=5,
-             steps=30)  # Adam steps of the CUDA-vs-CPU check
-PHYLO_INC = dict(n=64, L=2000, seed=6)  # the incremental NNI path starts at 48 taxa
+             steps=10, cpu_batch=16)  # Adam steps and candidates of the CUDA-vs-CPU checks
+PHYLO_INC = dict(n=64, L=1000, seed=6)  # the incremental NNI path starts at 48 taxa
 # likelihood tolerances, CUDA against the CPU (those of tests/test_torch_phylo.py)
 LL_RTOL, SITE_ATOL, SITE_RTOL = 1e-5, 1e-4, 1e-3
 BLEN_LL_RTOL, BLEN_ATOL, BLEN_RTOL = 1e-4, 1e-3, 1e-2
 SUPPORT_POINTS = 1.0
 RF_FLOOR = 0.2  # normalized RF of phase 4's tree to the generating species tree
-CROSS_SPECIES, CROSS_PER_SPECIES = 5, 40
-CASCADE_THRESHOLD = 1000       # phase 6a: phase 4's 2,400 sequences go through the cascade
-CROSS_CASCADE_THRESHOLD = 50   # phase 6b: and phase 5's 200
-GENETREE_GENES = 2             # phase 6c: core genes of phase 4, both of one lockstep group
-CROSS_GENETREE_GENES = 3       # phase 6d: core genes of phase 5
+CROSS_SPECIES, CROSS_PER_SPECIES = 5, 12
+CASCADE_PER_SPECIES = 60       # phase 6a: 20 x 60 proteomes (1,200 sequences; phase 4's seed) ...
+CASCADE_THRESHOLD = 500        # ... go through the cascade
+CROSS_CASCADE_PER_SPECIES = 16  # phase 6b: 5 x 16 proteomes (80 sequences; phase 5's seed) ...
+CROSS_CASCADE_THRESHOLD = 50   # ... go through the cascade
+GENETREE_GENES = 1             # phase 6c: core genes of phase 4 through gene-tree (timed)
+CROSS_GENETREE_GENES = 1       # phase 6d: core genes of phase 5
 SOLO_LL_RTOL = 1e-3            # phase 6c: lockstep against solo inference (tests/test_genetree_batched.py)
 # 6c: a split in one of the lockstep and solo trees only must have a branch
 # this short: a zero-length edge is a polytomy that float noise resolves
 # either way (the rule of tests/torch_port_helpers.py::assert_same_tree)
 RESOLVED = 2e-3
 CHECKABLE = ("foldseek", "foldmason", "mafft", "mafft-linsi", "iqtree", "fasttree", "raxml-ng")
+# phase 3d: sw_forward_bits (ops/sw_bits.py) CUDA vs CPU at (bucket, batch):
+# batches of 1 and the full batches sw_traceback_batch packs (64 MB of int16
+# scores: 64 at 64 and 512, 32 at 1,024, 8 at 2,048)
+SWB_CHECKS = [(64, 1), (64, 64), (512, 1), (512, 64), (2048, 1), (2048, 8)]
+SWB_GAPS = [(100, 10), (30, 5)]  # the engine's 10/1 in its integer units; another pair
+SWB_TIMED = [(512, 64), (1024, 32)]
+SEARCH_OPTIONS = "-c 0.8"  # phase 7a/7b: search's default
+PARTITION_OPTIONS = "-m JTT+F+I+G -B 1000 -p {}"  # phase 7c: tree's defaults and a partition file
+PARTITION_ADAM_STEPS = 10  # phase 7d: the timed optimize_blens ...
+PROFILED_STEPS = 3         # ... and the profiled one
+_CLOCK = [time.perf_counter()]  # the script's clock; main() restarts it
 
 
 class SmokeError(RuntimeError):
@@ -208,6 +271,21 @@ def log(*a):
 def check(cond, what):
     if not cond:
         raise SmokeError(what)
+
+
+def clock():
+    """Seconds on the script's clock."""
+    return time.perf_counter() - _CLOCK[0]
+
+
+@contextlib.contextmanager
+def span(name):
+    """Log a phase's start and end on the script's clock."""
+    t0 = clock()
+    try:
+        yield
+    finally:
+        log(f"[clock] {name}: {t0:.1f} -> {clock():.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -297,11 +375,20 @@ def stop_cli_runs():
             proc.kill()
 
 
-def run_steps(steps, out_dir, home, device=None, threads=None):
+def run_steps(steps, out_dir, home, device=None, threads=None, one_process=False):
     """Run `python -m unicore_tpu_torch` steps [(name, argv)] (or `python
     -c` steps, argv ["-c", code]), each a subprocess with HOME=home (and
     `threads` torch threads, if given); returns ({name: seconds},
-    {name: counters})."""
+    {name: counters}).  With `one_process`, CLI steps only: all of them
+    in one subprocess, one after the other (cli_chain), which pays the
+    interpreter's, torch's and the card's start-up once; their seconds
+    are then the CLI calls' own."""
+    if one_process and steps:
+        chain = steps[0][0] + "_chain"
+        code = f"import chip_smoke as c; c.cli_chain({list(steps)!r}, {out_dir!r}, {chain!r})"
+        run_steps([(chain, ["-c", code])], out_dir, home, device, threads)
+        times = json.load(open(os.path.join(out_dir, f"{chain}.times.json")))
+        return times, {k: json.load(open(os.path.join(out_dir, f"{k}.counters.json"))) for k in times}
     env = dict(os.environ, HOME=home, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("UNICORE_TPU_TORCH_DEVICE", None)
     if device:
@@ -332,6 +419,32 @@ def run_steps(steps, out_dir, home, device=None, threads=None):
     return times, counters
 
 
+def cli_chain(steps, out_dir, chain):
+    """`unicore_tpu_torch.cli.main` on each of `steps` [(name, argv)] in
+    this process, one after the other, each with its counters and kernel
+    launches counted from 0 and written where run_steps reads them; the
+    seconds of each call go to {chain}.times.json and the chain's own
+    (empty) counters to {chain}.counters.json."""
+    from unicore_tpu_torch.cli import main
+    from unicore_tpu_torch.ops import sw_cuda
+    from unicore_tpu_torch.runtime import profiling
+
+    times = {}
+    for stage, argv in steps:
+        profiling.reset_counters()
+        sw_cuda.reset_launch_counts()
+        os.environ["UNICORE_TPU_TORCH_COUNTERS"] = os.path.join(out_dir, f"{stage}.counters.json")
+        t0 = time.perf_counter()
+        rc = main([*argv, "-v", "2"])
+        times[stage] = time.perf_counter() - t0
+        if rc != 0:
+            sys.exit(f"{stage} exited {rc}")
+    with open(os.path.join(out_dir, f"{chain}.times.json"), "w") as f:
+        json.dump(times, f)
+    profiling.reset_counters()
+    profiling.dump(os.path.join(out_dir, f"{chain}.counters.json"), {})
+
+
 def run_slice(in_dir, out_dir, home, device=None):
     """createdb -> cluster -> profile -> tree -n through the CLI."""
     db = os.path.join(out_dir, "proteome", "proteome_db")
@@ -346,14 +459,15 @@ def run_slice(in_dir, out_dir, home, device=None):
     return run_steps(steps, out_dir, home, device)
 
 
-def run_easy_core(in_dir, out_dir, home, device=None, threads=None, beside=(), after=None):
-    """easy-core with its defaults, then, on its database, core genes and
-    copies of its supermatrix: tree -T raxml-ng beside tree -n with the two
-    other aligners followed by tree -T fasttree (raxml-ng's three starts
-    take as long as the three others; each side gets half the threads).
+def run_easy_core(in_dir, out_dir, home, device, threads, beside, sides):
+    """easy-core with its defaults, then the tree runs on its database, core
+    genes and copies of its supermatrix: tree -n with the two other
+    aligners, tree -T fasttree and tree -T raxml-ng, with other steps.
     `beside`: steps run next to easy-core, on a third of the threads;
-    `after()`: steps appended to the second side, made once easy-core has
-    ended."""
+    `sides(trees)`: lists of steps made once easy-core has ended from
+    `trees`, {name: step} of those four tree runs; each list runs in order
+    in one process (run_steps' `one_process`), the lists side by side,
+    each on an equal share of the threads."""
     db = os.path.join(out_dir, "proteome", "proteome_db")
     prof = os.path.join(out_dir, "profile")
     third = threads and max(1, threads // 3) if beside else 0
@@ -369,17 +483,14 @@ def run_easy_core(in_dir, out_dir, home, device=None, threads=None, beside=(), a
         os.makedirs(os.path.join(out_dir, sub))
         for f in ("combined.fasta", "combined.fasta.partitions"):
             shutil.copy(os.path.join(out_dir, "tree", f), os.path.join(out_dir, sub, f))
-    sides = [
-        [("tree_raxml", ["tree", db, prof, os.path.join(out_dir, "tree_raxml"), "-T", "raxml-ng"])],
-        [("tree_mafft", ["tree", db, prof, os.path.join(out_dir, "tree_mafft"), "-n", "-A", "mafft"]),
-         ("tree_linsi", ["tree", db, prof, os.path.join(out_dir, "tree_linsi"), "-n", "-A", "mafft-linsi"]),
-         ("tree_fasttree", ["tree", db, prof, os.path.join(out_dir, "tree_fasttree"), "-T", "fasttree"])]
-        + (after() if after else []),
-    ]
-    half = threads and max(1, threads // 2)
-    with ThreadPoolExecutor(len(sides)) as pool:
+    trees = {name: (name, ["tree", db, prof, os.path.join(out_dir, name), *opts]) for name, opts in (
+        ("tree_mafft", ["-n", "-A", "mafft"]), ("tree_linsi", ["-n", "-A", "mafft-linsi"]),
+        ("tree_fasttree", ["-T", "fasttree"]), ("tree_raxml", ["-T", "raxml-ng"]))}
+    lists = sides(trees)
+    share = threads and max(1, threads // len(lists))
+    with ThreadPoolExecutor(len(lists)) as pool:
         for side_times, side_counters in pool.map(
-                lambda steps: run_steps(steps, out_dir, home, device, half), sides):
+                lambda steps: run_steps(steps, out_dir, home, device, share, one_process=True), lists):
             times.update(side_times)
             counters.update(side_counters)
     return times, counters
@@ -492,7 +603,7 @@ def check_same_files(a, b):
     return n_inf
 
 
-def read_files(root, skip=(".counters.json",)):
+def read_files(root, skip=(".counters.json", ".times.json")):
     out = {}
     for d, _, names in os.walk(root):
         if os.path.relpath(d, root).split(os.sep)[0] == "tmp":
@@ -549,22 +660,24 @@ def phase_exact(ctx):
     max_err = {"gapped": 0.0, "ungapped": 0.0}
     n_cmp = 0
     t0 = time.perf_counter()
-    for B, L in SHAPES:
-        for bias in ("off", "on", "clip"):
+    for s, (B, L) in enumerate(SHAPES):
+        for bi, bias in enumerate(("off", "on", "clip")):
             args, qc = sw_inputs(ctx["rng"], B, L, bias, ctx["saa_np"], ctx["s3d_np"], ctx["dev"])
-            for mode, kw in MODES.items():
-                for go, ge in (GAPS if mode != "ungapped" else GAPS[:1]):
-                    k = sw_cuda.sw_forward_cuda(*args, saa, s3d, go=go, ge=ge, qc=qc, **kw)
-                    p = sw_forward_plain(*args, saa, s3d, go=go, ge=ge, qc=qc, **kw)
-                    torch.cuda.synchronize()
-                    kind = "ungapped" if mode == "ungapped" else "gapped"
-                    err = float((k[0] - p[0]).abs().max())
-                    max_err[kind] = max(max_err[kind], err)
-                    ok = all(torch.equal(a, b) for a, b in zip(k, p))
-                    check(ok, f"kernel != plain at B={B} L={L} {mode} bias={bias} go/ge={go}/{ge}: "
-                              f"max |best| err {err}, qend diff {int((k[1] != p[1]).sum())}, "
-                              f"tend diff {int((k[2] != p[2]).sum())}")
-                    n_cmp += 1
+            settings = [(mode, kw, go, ge) for mode, kw in MODES.items()
+                        for go, ge in (GAPS if mode != "ungapped" else GAPS[:1])]
+            # half the settings per shape and bias, the other half on the next
+            for mode, kw, go, ge in settings[(s + bi) % 2::2]:
+                k = sw_cuda.sw_forward_cuda(*args, saa, s3d, go=go, ge=ge, qc=qc, **kw)
+                p = sw_forward_plain(*args, saa, s3d, go=go, ge=ge, qc=qc, **kw)
+                torch.cuda.synchronize()
+                kind = "ungapped" if mode == "ungapped" else "gapped"
+                err = float((k[0] - p[0]).abs().max())
+                max_err[kind] = max(max_err[kind], err)
+                ok = all(torch.equal(a, b) for a, b in zip(k, p))
+                check(ok, f"kernel != plain at B={B} L={L} {mode} bias={bias} go/ge={go}/{ge}: "
+                          f"max |best| err {err}, qend diff {int((k[1] != p[1]).sum())}, "
+                          f"tend diff {int((k[2] != p[2]).sum())}")
+                n_cmp += 1
     dev = ctx["dev"]
     for s, (B, Lq, Lt) in enumerate(EDGE_SHAPES):
         modes = [dict(gap_window=w) for w in EDGE_WINDOWS + [Lt, 2 * Lt]] + [dict(ungapped=True)]
@@ -591,7 +704,8 @@ def phase_exact(ctx):
 
 def phase_times(ctx, shapes=SHAPES, reps=50, plain_reps=2):
     """Phase 3: times per shape and mode, with the engine's settings
-    (gap_window 64, bias on); returns {(B, L, kind): numbers}."""
+    (gap_window 64, bias on), the plain version's over `plain_reps` calls
+    at KERNEL_SHAPE and one elsewhere; returns {(B, L, kind): numbers}."""
     from unicore_tpu_torch.ops import sw_cuda
     from unicore_tpu_torch.ops.sw import sw_forward_plain
 
@@ -603,7 +717,8 @@ def phase_times(ctx, shapes=SHAPES, reps=50, plain_reps=2):
         cells = cells_of(args)
         for kind, kw in TIMED_MODES.items():
             ms = time_cuda(lambda: sw_cuda.sw_forward_cuda(*args, saa, s3d, qc=qc, **kw), reps)
-            plain_ms = time_cuda(lambda: sw_forward_plain(*args, saa, s3d, qc=qc, **kw), plain_reps)
+            plain_ms = time_cuda(lambda: sw_forward_plain(*args, saa, s3d, qc=qc, **kw),
+                                 plain_reps if (B, L) == KERNEL_SHAPE else 1)
             bound_ms, ops_ms, bytes_ms = bound_of(ctx, args, qc, kind)
             timing[(B, L, kind)] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -615,22 +730,23 @@ def phase_times(ctx, shapes=SHAPES, reps=50, plain_reps=2):
 
 
 def device_busy_ms(fn):
-    """(device kernel ms, wall ms) of one call of `fn` under torch.profiler;
-    device ms is None when the trace holds no device time."""
+    """(device ms, wall ms) of one call of `fn` under torch.profiler: the
+    durations of the trace's device events (kernels, copies, fills)
+    summed from the raw trace, which skips the profiler's slow
+    aggregation (tens of seconds for 10^5 launches); device ms is None
+    when the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    us = 0.0
-    for e in prof.key_averages():
-        v = getattr(e, "self_device_time_total", None)
-        us += getattr(e, "self_cuda_time_total", 0.0) if v is None else v
-    return (us / 1e3 if us > 0 else None), wall_ms
+    cuda = torch.autograd.DeviceType.CUDA
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events() if e.device_type() == cuda)
+    return (ns / 1e6 if ns > 0 else None), wall_ms
 
 
 def phase_nw(ctx):
@@ -787,11 +903,12 @@ def phase_phylo(ctx):
             trees.append(ts.random_nni_walk(root, rng, 3))
         arr = [tl.tree_to_arrays(x, names) for x in trees[:PHYLO["batch"]]]
         cb, bb = np.stack([a[0] for a in arr]), np.stack([a[1] for a in arr])
-        # the CPU side takes seconds per call at this size (about 8 s for
-        # the 64 candidates, 0.25 s per Adam step), so the costlier checks
-        # run on fewer candidates and steps than the timed calls
+        # the CPU side takes seconds per call at this size (8-22 s for the
+        # 64 candidates, 0.25 s per Adam step), so the checks run on fewer
+        # candidates and steps than the timed calls
         err = {}
-        err["loglik_batch"] = _rel_err(cpu.loglik_batch(cb, bb), gpu.loglik_batch(cb, bb))
+        k = PHYLO["cpu_batch"]
+        err["loglik_batch"] = _rel_err(cpu.loglik_batch(cb[:k], bb[:k]), gpu.loglik_batch(cb[:k], bb[:k]))
         err["site_loglik_batch"] = _site_err(cpu.site_loglik_batch(cb[:16], bb[:16]),
                                              gpu.site_loglik_batch(cb[:16], bb[:16]))
         moves = ts.nni_moves_arrays(c, n)
@@ -837,7 +954,7 @@ def phase_phylo_times(ctx, st):
     with tf32_requested():
         lb_ms = time_cuda(lambda: gpu.loglik_batch(cb, bb), 5)
         c0 = time.perf_counter()
-        cpu.loglik_batch(cb, bb)
+        cpu.loglik_batch(cb[:PHYLO["cpu_batch"]], bb[:PHYLO["cpu_batch"]])
         lb_cpu_ms = (time.perf_counter() - c0) * 1e3
         sb_ms = time_cuda(lambda: gpu.site_loglik_batch(cb, bb), 3)
         nm_ms = time_cuda(lambda: gpu.loglik_nni_moves(c, b, moves), 3)
@@ -858,7 +975,8 @@ def phase_phylo_times(ctx, st):
         nbytes = n * P * 20 * 4 + P * 4 + cb.size * 8 + bb.size * 4 + B * 4
         bound_ms = max(flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
         busy = "not measured" if busy_ms is None else f"{busy_ms / 10:.3f} ms of it busy ({100 * busy_ms / prof_ms:.1f} %)"
-        log(f"[phase 3c] loglik_batch ({B} candidates): {lb_ms:.2f} ms on the card, {lb_cpu_ms:.1f} ms on the CPU; "
+        log(f"[phase 3c] loglik_batch ({B} candidates): {lb_ms:.2f} ms on the card; {PHYLO['cpu_batch']} candidates "
+            f"{lb_cpu_ms:.1f} ms on the CPU; "
             f"bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP at FP32 peak, executed block-diagonally: "
             f"x{C}; {nbytes / 1e6:.2f} MB); site_loglik_batch {sb_ms:.2f} ms; loglik_nni_moves "
             f"({len(moves)} moves) {nm_ms:.2f} ms")
@@ -868,9 +986,60 @@ def phase_phylo_times(ctx, st):
                 adam_step_ms=step_ms, busy_ms=busy_ms, profiled_ms=prof_ms)
 
 
+def phase_sw_bits(ctx):
+    """Phase 3d, checks: the traceback DP (ops/sw_bits.py, PyTorch ops) on
+    the card against the same function on the CPU, bit-identical on
+    (bits, best_i, best_j, score).  Returns the card's inputs of
+    phase_sw_bits_times."""
+    import torch
+
+    from unicore_tpu_torch.ops.sw_bits import sw_forward_bits
+    from unicore_tpu_torch.synthetic import SW_WINDOW_KINDS, sw_windows
+
+    t0 = time.perf_counter()
+    n_cmp = 0
+    for c, (Lb, B) in enumerate(SWB_CHECKS):
+        for k, kind in enumerate(SW_WINDOW_KINDS):
+            # both gap pairs, but one (alternating) at the largest size,
+            # whose CPU side takes seconds
+            for go, ge in [SWB_GAPS[k % 2]] if (Lb, B) == SWB_CHECKS[-1] else SWB_GAPS:
+                t = [torch.from_numpy(x) for x in sw_windows(ctx["rng"], B, Lb, kind)]
+                cpu = sw_forward_bits(*t, go, ge)
+                gpu = sw_forward_bits(*(x.to(ctx["dev"]) for x in t), go, ge)
+                for name, x, y in zip(("bits", "best_i", "best_j", "score"), cpu, gpu):
+                    check(y.is_cuda and torch.equal(x, y.cpu()),
+                          f"sw_forward_bits on CUDA != CPU in {name} at bucket {Lb}, batch {B}, {kind}, go/ge {go}/{ge}")
+                n_cmp += 1
+    log(f"[phase 3d] {n_cmp} SW traceback forward (sw_forward_bits) CUDA-vs-CPU comparisons bit-identical on "
+        f"(bits, best_i, best_j, score) in {time.perf_counter() - t0:.1f} s")
+    return {(Lb, B): [torch.from_numpy(x).to(ctx["dev"]) for x in sw_windows(ctx["rng"], B, Lb, "rand")]
+            for Lb, B in SWB_TIMED}
+
+
+def phase_sw_bits_times(ctx, inputs):
+    """Phase 3d, times: one sw_forward_bits dispatch at the full batches of
+    buckets 512 and 1,024, its CPU time and the device's busy time inside
+    one dispatch.  Returns {(bucket, batch): numbers}."""
+    from unicore_tpu_torch.ops.sw_bits import sw_forward_bits
+
+    log("[phase 3d] bucket batch | ms per dispatch | CPU ms | device busy ms in one profiled dispatch (its wall ms)")
+    timing = {}
+    for (Lb, B), d in inputs.items():
+        ms = time_cuda(lambda: sw_forward_bits(*d, *SWB_GAPS[0]), 3)
+        c0 = time.perf_counter()
+        sw_forward_bits(*(x.cpu() for x in d), *SWB_GAPS[0])
+        cpu_ms = (time.perf_counter() - c0) * 1e3
+        busy_ms, wall_ms = device_busy_ms(lambda: sw_forward_bits(*d, *SWB_GAPS[0]))
+        timing[(Lb, B)] = dict(ms=ms, cpu_ms=cpu_ms, busy_ms=busy_ms, profiled_wall_ms=wall_ms)
+        busy = "not measured" if busy_ms is None else f"{busy_ms:.2f}"
+        log(f"  {Lb:6d} {B:5d} | {ms:10.2f} | {cpu_ms:9.2f} | {busy} ({wall_ms:.2f})")
+    return timing
+
+
 def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
     """Phase 4: createdb -> cluster -> profile -> tree -n at a real size;
-    returns the kernel's launches per mode in that run."""
+    returns the kernel's launches per mode in that run and the counters of
+    its inference."""
     from unicore_tpu_torch import synthetic
     from unicore_tpu_torch.ops import sw_cuda
 
@@ -911,14 +1080,13 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
           f"the main path did not launch both kernel modes: {launches}")
     check(purity >= PURITY_FLOOR, f"cluster purity {purity:.4f} < {PURITY_FLOOR}")
     check(t["msa.dispatches"] > 0, "the tree stage ran no NW forward")
-    phase_inference(work, out_dir, n_species)
-    return launches
+    return launches, phase_inference(work, out_dir, n_species)
 
 
 def phase_inference(work, out_dir, n_species):
     """Phase 4, second part: `tree` with its defaults on phase 4's output
     directory (the skip path: inference alone), and the checks of its
-    iqtree outputs."""
+    iqtree outputs; returns its counters."""
     from unicore_tpu_torch import synthetic
     from unicore_tpu_torch.phylo.newick import bipartitions, parse_newick, rf_distance
 
@@ -946,6 +1114,137 @@ def phase_inference(work, out_dir, n_species):
         f"alpha {report['alpha']}, p_inv {report['p_inv']}; {len(sup)} of {len(every)} splits labelled, "
         f"supports min {min(sup):.1f} mean {np.mean(sup):.1f}; normalized RF to the generating species tree {rf:.4f} (floor {RF_FLOOR})")
     check(rf <= RF_FLOOR, f"normalized RF {rf:.4f} to the generating species tree > {RF_FLOOR}")
+    return c
+
+
+def phase_search(ctx, work):
+    """Phase 7a: `search` at phase 4's full width on CUDA, as a CLI
+    subprocess with a fresh HOME (the E-value fit runs on the kernel): a
+    reference DB of one sequence per core gene of phase 4 (write_reference_db)
+    against phase 4's 2,400-sequence proteome DB, default options, then
+    `profile` on its m8.  Requires every reference's self hit with fident
+    1.000, mismatch 0 and gapopen 0, the m8 grouped by reference, both
+    kernel modes launched, search.chk "1", and the banded traceback taken
+    where a reference is longer than 1,024.  Returns the launches."""
+    import itertools
+
+    out_dir = os.path.join(work, "main")
+    db = os.path.join(out_dir, "proteome", "proteome_db")
+    genes4 = core_genes(out_dir)
+    s_dir = os.path.join(work, "search7a")
+    ref = os.path.join(s_dir, "ref", "ref_db")
+    lengths = write_reference_db(db, genes4, ref)
+    m8 = os.path.join(s_dir, "search", "search")
+    times, counters = run_steps(
+        [("search", ["search", db, ref, m8, os.path.join(s_dir, "tmp"), "-s", SEARCH_OPTIONS])],
+        s_dir, os.path.join(work, "home_search"))
+    c = counters["search"]
+    from unicore_tpu_torch.cli import main as cli_main  # profile is host code: in this process
+    t0 = time.perf_counter()
+    check(cli_main(["profile", db, m8 + ".m8", os.path.join(s_dir, "profile"), "-v", "2"]) == 0,
+          "7a: profile on search.m8 failed")
+    times["search_profile"] = time.perf_counter() - t0
+    rows = [line.split("\t") for line in open(m8 + ".m8").read().splitlines()]
+    order = [r[0] for r in rows]
+    check(len([k for k, _ in itertools.groupby(order)]) == len(set(order)), "7a: the m8 is not grouped by reference")
+    selfs = {r[0]: (r[2], r[4], r[5]) for r in rows if r[0] == f"AF-{r[1]}-F1"}  # fident, mismatch, gapopen
+    bad = [g for g in genes4 if selfs.get(f"AF-{g}-F1") != ("1.000", "0", "0")]
+    check(not bad, f"7a: references without a self hit of fident 1.000, mismatch 0, gapopen 0: {bad[:5]}")
+    launches = {k: int(c.get(f"kernel.sw.{k}.launches", 0)) for k in ("gapped", "ungapped")}
+    check(launches["gapped"] > 0 and launches["ungapped"] > 0, f"7a did not launch both kernel modes: {launches}")
+    check(open(os.path.join(s_dir, "search", "search.chk")).read() == "1", "7a: search.chk does not read 1")
+    n_long = sum(L > 1024 for L in lengths)
+    check(n_long == 0 or c.get("traceback.banded", 0) > 0, "7a: no window took the banded traceback")
+    genes7 = core_genes(s_dir)
+    log(f"[phase 7a] search (-s \"{SEARCH_OPTIONS}\") of {len(genes4)} references ({n_long} longer than 1,024) "
+        f"against phase 4's proteome DB on CUDA: "
+        f"{times['search']:.2f} s of subprocess wall (stage.search.seconds {c['stage.search.seconds']:.2f}, "
+        f"traceback_fill {c['traceback.fill_seconds']:.2f} s of it, sw_forward_bits dispatches "
+        f"{int(c['traceback.dispatches'])}); candidate pairs {int(c['search.candidate_pairs'])}, hits "
+        f"{int(c['search.hits'])}; traceback windows batched {int(c['traceback.batched'])}, banded "
+        f"{int(c.get('traceback.banded', 0))}, full Gotoh {int(c.get('traceback.full', 0))}; kernel launches "
+        f"{launches}; every self hit at fident 1.000 ({ctx['smi']})")
+    log(f"  profile on search.m8 (in process): {times['search_profile']:.2f} s, {len(genes7)} core genes, "
+        f"{len(set(genes7) & set(genes4))} of them among phase 4's {len(genes4)}")
+    return launches
+
+
+def phase_partition(ctx, work, inference_counters):
+    """Phase 7d: the partitioned engine at phase 4's full width (its
+    supermatrix, partition file and final tree, JTT+F+I+G at the
+    report's alpha and p_inv) on the card against the CPU under TF32
+    settings: loglik within LL_RTOL, site_loglik within SITE_ATOL +
+    SITE_RTOL |s|; then ms per call and per Adam step, the device-busy
+    share of a PARTITION_ADAM_STEPS-step optimize_blens, each call's
+    bound (as phase 3c's, on the padded G_pad x Pmax shapes), and an
+    extrapolation of a full `tree -p -B 1000` at this size from phase 4's
+    counts of Adam steps and scored topologies."""
+    from unicore_tpu_torch.io.fasta import read_fasta
+    from unicore_tpu_torch.phylo import likelihood as tl
+    from unicore_tpu_torch.phylo.models import ModelSpec
+    from unicore_tpu_torch.phylo.newick import parse_newick
+    from unicore_tpu_torch.phylo.partition import PartitionedLikelihoodEngine, parse_partition_file
+
+    tree_dir = os.path.join(work, "main", "tree")
+    msa = read_fasta(os.path.join(tree_dir, "combined.fasta"))
+    parts = parse_partition_file(os.path.join(tree_dir, "combined.fasta.partitions"))
+    report = report_lines(open(os.path.join(tree_dir, "iqtree.iqtree"), "rb").read())
+    names, seqs = list(msa), list(msa.values())
+    kw = dict(spec=ModelSpec.parse("JTT+F+I+G"), alpha=float(report["alpha"]), p_inv=float(report["p_inv"]))
+    t0 = time.perf_counter()
+    cpu = PartitionedLikelihoodEngine(names, seqs, parts, device="cpu", **kw)
+    gpu = PartitionedLikelihoodEngine(names, seqs, parts, device=ctx["dev"], **kw)
+    c, b = tl.tree_to_arrays(tl.make_root_binary(parse_newick(open(os.path.join(tree_dir, "iqtree.treefile")).read())),
+                             names)
+    n, G, Gp, Pm, C = gpu.n, gpu.G, gpu._G_pad, gpu.Pmax, int(gpu._mp["rates"].shape[-1])
+    with tf32_requested():
+        c0 = time.perf_counter()
+        ll_c = cpu.loglik(c, b)
+        ll_cpu_ms = (time.perf_counter() - c0) * 1e3
+        c0 = time.perf_counter()
+        site_c = cpu.site_loglik(c, b)
+        site_cpu_ms = (time.perf_counter() - c0) * 1e3
+        ll_g, site_g = gpu.loglik(c, b), gpu.site_loglik(c, b)
+        ll_err, site_err = _rel_err(ll_c, ll_g), _site_err(site_c, site_g)
+        check(ll_err <= LL_RTOL, f"7d: partitioned loglik CUDA {ll_g} vs CPU {ll_c}")
+        check(site_err <= 1.0, f"7d: partitioned site_loglik CUDA vs CPU at {site_err:.3g} of the tolerance")
+        ll_ms = time_cuda(lambda: gpu.loglik(c, b), 3)
+        site_ms = time_cuda(lambda: gpu.site_loglik(c, b), 3)
+        steps = PARTITION_ADAM_STEPS
+        gpu.optimize_blens(c, b, steps=2)  # warm-up
+        w0 = time.perf_counter()
+        nb, ll_opt = gpu.optimize_blens(c, b, steps=steps)
+        step_ms = (time.perf_counter() - w0) * 1e3 / (steps + 1)  # steps + the final evaluation
+        busy_ms, prof_ms = device_busy_ms(lambda: gpu.optimize_blens(c, b, steps=PROFILED_STEPS))
+    check(np.isfinite(ll_opt) and ll_opt >= ll_g - LL_RTOL * abs(ll_g), f"7d: Adam from {ll_g} ended at {ll_opt}")
+    # the bound of one call: per partition (padded), internal node and
+    # child, a (Pmax, C*20) x per-category (20, 20) product, C*20*20 MACs
+    # per pattern; bytes: tips, weights, topology and lengths read once,
+    # the result (a scalar, or a site per padded pattern) written once.
+    # An Adam step is a forward and a backward pass: 3x the products.
+    flops = Gp * (n - 1) * 2 * 2.0 * Pm * C * 20 * 20
+    nbytes = Gp * n * Pm * 20 * 4 + Gp * Pm * 4 + c.size * 8 + b.size * 4
+    bound = {k: max(f / FP32_FLOPS_PER_S, (nbytes + extra) / HBM_BYTES_PER_S) * 1e3
+             for k, f, extra in (("loglik", flops, 4), ("site_loglik", flops, Gp * Pm * 4),
+                                 ("adam_step", 3 * flops, b.size * 4))}
+    busy = "not measured" if busy_ms is None else \
+        f"{busy_ms / (PROFILED_STEPS + 1):.2f} ms of each busy ({100 * busy_ms / prof_ms:.1f} %)"
+    log(f"[phase 7d] partitioned likelihood at phase 4's width: {n} taxa, {G} partitions (padded to {Gp}), "
+        f"{len(gpu.weights)} patterns (padded to {Gp} x {Pm} = {Gp * Pm}), C = {C}; CUDA vs CPU under TF32 "
+        f"settings: loglik relative error {ll_err:.3g}, site_loglik {site_err:.3g} of its tolerance "
+        f"({time.perf_counter() - t0:.1f} s) ({ctx['smi']})")
+    log(f"  loglik {ll_ms:.2f} ms (CPU {ll_cpu_ms:.1f} ms), bound {bound['loglik']:.4f} ms; site_loglik "
+        f"{site_ms:.2f} ms (CPU {site_cpu_ms:.1f} ms), bound {bound['site_loglik']:.4f} ms; Adam "
+        f"{step_ms:.2f} ms per step ({steps} steps, lnL {ll_g:.4f} -> {ll_opt:.4f}), bound "
+        f"{bound['adam_step']:.4f} ms; profiled {PROFILED_STEPS}-step call {prof_ms:.1f} ms, {busy}")
+    ic = inference_counters
+    est_s = (ic["phylo.blen_steps"] * step_ms + ic["phylo.candidates"] * max(ll_ms, site_ms)) / 1e3
+    log(f"  extrapolation, not a measurement: a `tree -p -B 1000` at this size making phase 4's "
+        f"{int(ic['phylo.blen_steps'])} Adam steps and scoring its {int(ic['phylo.candidates'])} topologies "
+        f"(counts of its unpartitioned run, whose search used an 8,192-pattern subsample) on every pattern "
+        f"would take about {est_s:.0f} s of these calls")
+    return dict(loglik_ms=ll_ms, site_ms=site_ms, step_ms=step_ms, busy_ms=busy_ms, profiled_ms=prof_ms,
+                bound=bound, est_s=est_s)
 
 
 def cascade_step(db_path, tsv, threshold):
@@ -992,13 +1291,16 @@ def gene_key(msa_file):
     return len(msa), pattern_bucket(p), p
 
 
-def cascade_steps(work, small, device):
-    """Phase 6b on one device: phase 5's proteomes through createdb into a
-    directory of their own, then the cascade at CROSS_CASCADE_THRESHOLD."""
+def cascade_steps(work, device):
+    """Phase 6b on one device, in one process: its 5 x 16 proteomes
+    (written by start_crosscheck) through createdb into a directory of
+    their own, then the cascade at CROSS_CASCADE_THRESHOLD."""
     db = os.path.join(work, f"casc_{device}", "proteome", "proteome_db")
-    code = (f"import chip_smoke as c; c.cascade_step({db!r}, "
-            f"{os.path.join(work, f'casc_{device}', 'cluster', 'clust.tsv')!r}, {CROSS_CASCADE_THRESHOLD})")
-    return [(f"cascade_createdb_{device}", ["createdb", small, db, "mock"]), (f"cascade_{device}", ["-c", code])]
+    code = (f"import chip_smoke as c; from unicore_tpu_torch.cli import main; "
+            f"assert main(['createdb', {os.path.join(work, 'casc_in')!r}, {db!r}, 'mock', '-v', '2']) == 0; "
+            f"c.cascade_step({db!r}, {os.path.join(work, f'casc_{device}', 'cluster', 'clust.tsv')!r}, "
+            f"{CROSS_CASCADE_THRESHOLD})")
+    return [(f"cascade_{device}", ["-c", code])]
 
 
 def genetree_steps(work, x_dir, device):
@@ -1013,6 +1315,60 @@ def genetree_steps(work, x_dir, device):
     with open(names, "w") as f:
         f.write("".join(g + "\n" for g in genes))
     return [(f"genetree_{device}", ["gene-tree", gt, "--name", names])]
+
+
+def write_reference_db(db_path, genes, out_path):
+    """A reference DB of one sequence per core gene: the gene's cluster
+    representative (whose name the gene carries), its AA and mock 3Di
+    read from the proteome DB, named AF-<name>-F1 as AFDB entries are
+    (profile's display name is then <name>).  Returns the lengths."""
+    from unicore_tpu_torch.io.seqdb import SeqDB
+
+    db = SeqDB.read(db_path, require_ss=True)
+    idx = db.name_to_idx()
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    SeqDB(names=[f"AF-{g}-F1" for g in genes], aa_seqs=[db.aa_seqs[idx[g]] for g in genes],
+          ss_seqs=[db.ss_seqs[idx[g]] for g in genes]).write(out_path)
+    return [len(db.aa_seqs[idx[g]]) for g in genes]
+
+
+def easy_search_steps(work, x_dir, device):
+    """Phase 7b on one device: easy-search with its defaults on phase 5's
+    proteomes against a reference DB of the core genes of phase 5's
+    output `x_dir`."""
+    ref = os.path.join(work, f"ref7b_{device}", "ref_db")
+    write_reference_db(os.path.join(x_dir, "proteome", "proteome_db"), core_genes(x_dir), ref)
+    return [(f"easy_search_{device}", ["easy-search", os.path.join(work, "small"), ref,
+                                       os.path.join(work, f"es_{device}"), "mock",
+                                       os.path.join(work, f"es_tmp_{device}")])]
+
+
+def partition_tree_steps(work, x_dir, device):
+    """Phase 7c on one device: `tree` with its defaults and `-p` on the
+    partition file, on a copy of the supermatrix of phase 5's output
+    `x_dir` (the skip path: inference alone)."""
+    tp = os.path.join(work, f"tp_{device}")
+    os.makedirs(tp)
+    for f in ("combined.fasta", "combined.fasta.partitions"):
+        shutil.copy(os.path.join(x_dir, "tree", f), os.path.join(tp, f))
+    opts = PARTITION_OPTIONS.format(os.path.join(tp, "combined.fasta.partitions"))
+    return [(f"tree_partitioned_{device}", ["tree", os.path.join(x_dir, "proteome", "proteome_db"),
+                                            os.path.join(x_dir, "profile"), tp, f"--tree-options={opts}"])]
+
+
+def cross_sides(work, x_dir, device, trees):
+    """The steps on phase 5's easy-core output `x_dir`, on one device, as
+    side-by-side lists (run_easy_core's `sides`): on the CPU three, 7c
+    (the partitioned engine on every pattern) and 6d, tree -T raxml-ng
+    and tree -T fasttree, the two other aligners and 7b; on CUDA two,
+    raxml-ng, 7c and 6d beside the rest."""
+    p7c = partition_tree_steps(work, x_dir, device)
+    p6d = genetree_steps(work, x_dir, device)
+    p7b = easy_search_steps(work, x_dir, device)
+    t = trees
+    if device == "cpu":
+        return [p7c + p6d, [t["tree_raxml"], t["tree_fasttree"]], [t["tree_mafft"], t["tree_linsi"], *p7b]]
+    return [[t["tree_raxml"], *p7c, *p6d], [t["tree_mafft"], t["tree_linsi"], t["tree_fasttree"], *p7b]]
 
 
 def check_gene_trees(root, genes, supported=True):
@@ -1041,16 +1397,17 @@ def check_gene_trees(root, genes, supported=True):
     return reports
 
 
-def phase_cascade(ctx, work, t0):
-    """Phase 6a: the cascade in process on CUDA at phase 4's scale (its
-    proteomes, threshold CASCADE_THRESHOLD): every sequence in one
-    cluster, purity against the families, both kernel modes launched."""
+def phase_cascade(ctx, work):
+    """Phase 6a: the cascade in process on CUDA on 20 x CASCADE_PER_SPECIES
+    proteomes (phase 4's seed and generator; threshold CASCADE_THRESHOLD):
+    every sequence in one cluster, purity against the families, both
+    kernel modes launched."""
     from unicore_tpu_torch import synthetic
 
-    started = time.perf_counter() - t0
+    started = clock()
 
     in_dir, out = os.path.join(work, "cascade_in"), os.path.join(work, "cascade")
-    labels = synthetic.write_proteomes(in_dir, N_SPECIES, PER_SPECIES, seed=7)
+    labels = synthetic.write_proteomes(in_dir, N_SPECIES, CASCADE_PER_SPECIES, seed=7)
     db = os.path.join(out, "proteome", "proteome_db")
     run_steps([("cascade_createdb", ["createdb", in_dir, db, "mock"])], out, os.path.join(work, "home_cascade"))
     seqdb, c, seconds = cascade_step(db, os.path.join(out, "cluster", "clust.tsv"), CASCADE_THRESHOLD)
@@ -1059,7 +1416,7 @@ def phase_cascade(ctx, work, t0):
     purity, n_clusters = synthetic.cluster_purity(out, labels)
     launches = {k: int(c[f"kernel.sw.{k}.launches"]) for k in ("gapped", "ungapped")}
     log(f"[phase 6a] cascade (threshold {CASCADE_THRESHOLD}) on {len(seqdb)} sequences on CUDA, in process "
-        f"(from {started:.1f} s to {time.perf_counter() - t0:.1f} s after the CPU run started, beside 6e and "
+        f"(from {started:.1f} s to {clock():.1f} s on the script's clock, beside 6e and "
         f"phase 5's CUDA run): {seconds:.2f} s ({ctx['smi']}); canopy reps {int(c['cascade.reps'])}, verify pairs "
         f"{int(c['cascade.verify_pairs'])}, verified {int(c['cascade.verified'])}, rep-round pairs "
         f"{int(c['cascade.rep_pairs'])}, edges {int(c['cascade.rep_edges'])}, empirical null fitted "
@@ -1068,7 +1425,15 @@ def phase_cascade(ctx, work, t0):
         f"rescore.seconds {c['rescore.seconds']:.2f}, banded.seconds {c.get('banded.seconds', 0.0):.2f}")
     check(launches["gapped"] > 0 and launches["ungapped"] > 0, f"the cascade did not launch both modes: {launches}")
     check(purity >= PURITY_FLOOR, f"cascade purity {purity:.4f} < {PURITY_FLOOR}")
+    log(f"[clock] phase 6a: {started:.1f} -> {clock():.1f} s")
     return dict(seconds=seconds, launches=launches, purity=purity, clusters=n_clusters)
+
+
+def phase_cascade_and_config(ctx, work):
+    """6a, then 6e (the side thread beside phase 5's CUDA run)."""
+    phase_cascade(ctx, work)
+    with span("phase 6e"):
+        phase_config(ctx, work)
 
 
 def phase_config(ctx, work):
@@ -1094,30 +1459,70 @@ def phase_config(ctx, work):
 
 
 def phase_cross6(ctx, work, cuda_run, cpu_times, cpu_counters):
-    """Phases 6b and 6d, CUDA (`cuda_run`: the times and counters of
-    cascade_steps and genetree_steps, run after phase 5's CUDA run)
-    against the CPU (run inside phase 5's CPU run): the cascade's
-    clust.tsv byte-identical, the gene trees compared after parsing as
-    phase 5 compares its trees."""
+    """Phases 6b and 6d, CUDA (`cuda_run`: the times and counters of phase
+    5's CUDA run with cascade_steps and genetree_steps) against the CPU
+    (run inside phase 5's CPU run): the cascade's clust.tsv byte-identical
+    (its canopy merged some sequences, its representative round ran), the
+    gene trees compared after parsing as phase 5 compares its trees."""
     times, counters = cuda_run
     tsv = [open(os.path.join(work, f"casc_{d}", "cluster", "clust.tsv"), "rb").read() for d in ("cpu", "cuda")]
     check(tsv[0] == tsv[1], "the cascade's clust.tsv differs between CUDA and the CPU")
     cc, cg = cpu_counters["cascade_cpu"], counters["cascade_cuda"]
     check(cc.get("kernel.sw.gapped.launches", 0) == 0 and cg["kernel.sw.gapped.launches"] > 0,
           "6b: the kernel ran on the wrong side")
-    check(cg["cascade.reps"] > 0 and cg["cluster.sequences"] > CROSS_CASCADE_THRESHOLD, "6b did not take the cascade")
+    check(0 < cg["cascade.reps"] < cg["cluster.sequences"] and cg["cluster.sequences"] > CROSS_CASCADE_THRESHOLD
+          and cg["cascade.rep_pairs"] > 0, "6b did not take the cascade, merge in its canopy and run its rep round")
     genes = core_genes(os.path.join(work, "x_cuda"))[:CROSS_GENETREE_GENES]
     a, b = read_files(os.path.join(work, "gt_cpu")), read_files(os.path.join(work, "gt_cuda"))
     n_inf = check_same_files(a, b)
     check(n_inf == 3 * len(genes), f"6d compared {n_inf} inference outputs for {len(genes)} genes")
     check_gene_trees(os.path.join(work, "gt_cuda"), genes)
-    log(f"[phase 6b] cascade (threshold {CROSS_CASCADE_THRESHOLD}) at {CROSS_SPECIES} x {CROSS_PER_SPECIES}: "
+    log(f"[phase 6b] cascade (threshold {CROSS_CASCADE_THRESHOLD}) at {CROSS_SPECIES} x {CROSS_CASCADE_PER_SPECIES}: "
         f"clust.tsv byte-identical CUDA vs CPU ({tsv[0].count(b'\n')} lines, {int(cg['cluster.clusters'])} clusters, "
         f"canopy reps {int(cg['cascade.reps'])}, rep-round pairs {int(cg['cascade.rep_pairs'])}); "
         f"CUDA {times['cascade_cuda']:.2f} s, CPU {cpu_times['cascade_cpu']:.2f} s ({ctx['smi']})")
     log(f"[phase 6d] gene-tree (iqtree defaults) on {len(genes)} core genes of phase 5: {n_inf} inference "
         f"outputs within tolerance CUDA vs CPU; CUDA {times['genetree_cuda']:.2f} s, CPU "
         f"{cpu_times['genetree_cpu']:.2f} s ({ctx['smi']})")
+
+
+def phase_cross7(ctx, work, cuda_run, cpu_times, cpu_counters):
+    """Phases 7b and 7c, CUDA (`cuda_run`) against the CPU (inside phase
+    5's CPU run): easy-search's files before inference byte-identical and
+    its tree files compared as phase 5 compares them; `tree -p`'s outputs
+    compared the same way, with n_partitions the partition file's line
+    count."""
+    times, counters = cuda_run
+    a, b = read_files(os.path.join(work, "es_cpu")), read_files(os.path.join(work, "es_cuda"))
+    n_inf = check_same_files(a, b)
+    for want in ("search/search.m8", "profile/copiness.tsv", "tree/combined.fasta",
+                 "tree/combined.fasta.partitions", "tree/iqtree.treefile"):
+        check(want in a, f"7b wrote no {want}")
+    check(n_inf == 3 and a["search/search.chk"] == b"1" and a["tree/tree.chk"] == b"1",
+          f"7b: {n_inf} inference outputs, search.chk {a['search/search.chk']}, tree.chk {a['tree/tree.chk']}")
+    ce, cc = counters["easy_search_cuda"], cpu_counters["easy_search_cpu"]
+    check(ce["kernel.sw.gapped.launches"] > 0 and cc.get("kernel.sw.gapped.launches", 0) == 0,
+          "7b: the kernel ran on the wrong side")
+    genes = [n[len("profile/"):-4] for n in a if n.startswith("profile/") and n.endswith(".txt")]
+    m8 = a["search/search.m8"].decode().splitlines()
+    log(f"[phase 7b] easy-search (defaults, iqtree -B 1000) at {CROSS_SPECIES} x {CROSS_PER_SPECIES} against "
+        f"{len(core_genes(os.path.join(work, 'x_cuda')))} references: {len(a)} files, {len(a) - n_inf} "
+        f"byte-identical CUDA vs CPU, {n_inf} inference outputs within tolerance; {len(m8)} hits, {len(genes)} "
+        f"core genes; traceback windows batched {int(ce['traceback.batched'])}, banded "
+        f"{int(ce.get('traceback.banded', 0))}, full {int(ce.get('traceback.full', 0))}; CUDA "
+        f"{times['easy_search_cuda']:.2f} s, CPU {cpu_times['easy_search_cpu']:.2f} s ({ctx['smi']})")
+    a, b = read_files(os.path.join(work, "tp_cpu")), read_files(os.path.join(work, "tp_cuda"))
+    n_inf = check_same_files(a, b)
+    n_parts = len(a["combined.fasta.partitions"].decode().splitlines())
+    report = report_lines(b["iqtree.iqtree"])
+    check(n_inf == 3 and b["tree.chk"] == b"1", f"7c: {n_inf} inference outputs, tree.chk {b['tree.chk']}")
+    check(int(report["n_partitions"]) == n_parts, f"7c: n_partitions {report['n_partitions']}, file {n_parts}")
+    cp = counters["tree_partitioned_cuda"]
+    log(f"[phase 7c] tree {PARTITION_OPTIONS.format('combined.fasta.partitions')} on phase 5's supermatrix "
+        f"({report['n_taxa']} taxa, {report['n_sites']} sites, {n_parts} partitions, {report['n_patterns']} "
+        f"patterns): the same tree CUDA vs CPU within tolerance, lnL {float(report['lnL']):.4f}; Adam steps "
+        f"{int(cp['phylo.blen_steps'])}, topologies scored {int(cp['phylo.candidates'])}; CUDA "
+        f"{times['tree_partitioned_cuda']:.2f} s, CPU {cpu_times['tree_partitioned_cpu']:.2f} s ({ctx['smi']})")
 
 
 def solo_infer(msa_path, out_json):
@@ -1158,7 +1563,7 @@ def phase_genetree(ctx, work):
     first = next((k for k, v in groups.items() if len(v) >= 2), None)
     check(first is not None, f"no two of phase 4's {len(genes)} core genes share a lockstep group")
     grouped = groups[first][:2]
-    picked = grouped + [g for g in genes if g not in grouped][:GENETREE_GENES - 2]
+    picked = grouped[:GENETREE_GENES]
     names = os.path.join(work, "genetree_names.txt")
     with open(names, "w") as f:
         f.write("".join(g + "\n" for g in picked))
@@ -1273,32 +1678,44 @@ def _on_cores(cores, fn, *args):
 
 
 def start_crosscheck(work, pool, cores):
-    """Phase 5, first half: write its proteomes and start its CPU run in
-    `pool` on `cores`, with one torch thread per core, 6b's CPU run beside
-    its easy-core and 6d's after its tree runs; returns (input directory,
-    the run's future)."""
+    """Phase 5, first half: write its proteomes (and 6b's) and start its
+    CPU run in `pool` on `cores`, with one torch thread per core, 6b's CPU
+    run beside its easy-core, 7c's after its raxml-ng tree, 6d's and 7b's
+    after its other trees; returns (input directory, the run's future)."""
     from unicore_tpu_torch import synthetic
 
     small = os.path.join(work, "small")
     synthetic.write_proteomes(small, CROSS_SPECIES, CROSS_PER_SPECIES, seed=11, long_family=True)
+    synthetic.write_proteomes(os.path.join(work, "casc_in"), CROSS_SPECIES, CROSS_CASCADE_PER_SPECIES, seed=11)
     x_cpu = os.path.join(work, "x_cpu")
-    return small, pool.submit(_on_cores, cores, run_easy_core, small, x_cpu, os.path.join(work, "home_cpu"),
-                              "cpu", len(cores), cascade_steps(work, small, "cpu"),
-                              lambda: genetree_steps(work, x_cpu, "cpu"))
+    return small, pool.submit(_on_cores, cores, _ended, run_easy_core, small, x_cpu, os.path.join(work, "home_cpu"),
+                              "cpu", len(cores), cascade_steps(work, "cpu"),
+                              lambda trees: cross_sides(work, x_cpu, "cpu", trees))
+
+
+def _ended(fn, *args):
+    """(fn(*args), the script's clock when it returned)."""
+    out = fn(*args)
+    return out, clock()
 
 
 def phase_crosscheck(ctx, work, small, cpu_run, t0):
     """Phase 5: easy-core, the two other aligners and the two other tree
     builders on CUDA (here) and on the CPU (`cpu_run`, started at t0): the
     same files, byte-identical up to inference, the inference outputs
-    within the stated tolerances.  Then phases 6b and 6d."""
-    cuda_times, _ = run_easy_core(small, os.path.join(work, "x_cuda"), os.path.join(work, "home_cuda"))
-    cuda6 = run_steps(cascade_steps(work, small, "cuda") + genetree_steps(work, os.path.join(work, "x_cuda"), "cuda"),
-                      os.path.join(work, "p6_cuda"), os.path.join(work, "home_cuda"))
-    fg_done = time.perf_counter() - t0
-    cpu_times, cpu_counters = cpu_run.result()
-    log(f"[phase 5] the card's cores ended their work {fg_done:.1f} s after the CPU run started; "
-        f"the CPU run ended at {time.perf_counter() - t0:.1f} s ({ctx['smi']})")
+    within the stated tolerances.  Then phases 6b, 6d, 7b and 7c (their
+    CUDA runs: 6b beside easy-core, 7c, 6d and 7b after it, as on the
+    CPU)."""
+    x_cuda = os.path.join(work, "x_cuda")
+    with span("phase 5, CUDA run (with 6b, 7c, 6d and 7b)"):
+        cuda_times, cuda_counters = run_easy_core(small, x_cuda, os.path.join(work, "home_cuda"), None, None,
+                                                  cascade_steps(work, "cuda"),
+                                                  lambda trees: cross_sides(work, x_cuda, "cuda", trees))
+    fg_done = clock()
+    (cpu_times, cpu_counters), cpu_end = cpu_run.result()
+    log(f"[phase 5] the card's cores ended their work at {fg_done:.1f} s; the CPU run ended at {cpu_end:.1f} s "
+        f"({ctx['smi']})")
+    log(f"[clock] phase 5, CPU run (with 6b, 6d, 7b and 7c): {t0 - _CLOCK[0]:.1f} -> {cpu_end:.1f} s")
     a, b = read_files(os.path.join(work, "x_cpu")), read_files(os.path.join(work, "x_cuda"))
     n_inf = check_same_files(a, b)
     for want in ("cluster/clust.tsv", "tree/combined.fasta", "tree/iqtree.treefile", "tree_mafft/combined.fasta",
@@ -1313,17 +1730,20 @@ def phase_crosscheck(ctx, work, small, cpu_run, t0):
         f"at {CROSS_SPECIES} x {CROSS_PER_SPECIES}: {len(a)} files, {len(a) - n_inf} byte-identical, "
         f"{n_inf} inference outputs within tolerance; {time.perf_counter() - t0:.1f} s since the CPU run "
         f"started beside phases 1-3c")
-    log("  step      CUDA s    CPU s")
+    log("  step                 CUDA s    CPU s")
     for k in cuda_times:
-        log(f"  {k:12s} {cuda_times[k]:7.2f} {cpu_times[k]:8.2f}")
-    phase_cross6(ctx, work, cuda6, cpu_times, cpu_counters)
+        kc = k.replace("cuda", "cpu")
+        log(f"  {k:22s} {cuda_times[k]:7.2f} {cpu_times[kc]:8.2f}")
+    phase_cross6(ctx, work, (cuda_times, cuda_counters), cpu_times, cpu_counters)
+    phase_cross7(ctx, work, (cuda_times, cuda_counters), cpu_times, cpu_counters)
 
 
 def checks_beside_cpu_run(work):
-    """Phase 1, the checks of phases 2, 3b and 3c, and phase 5, on two
-    cores, while phase 5's CPU run (a cross-check, timed by nothing) goes
-    on on the others from the start.  Returns the context, phase 2's
-    errors and the inputs of the timed phases."""
+    """Phase 1, the checks of phases 2, 3b, 3c and 3d, then 6a and 6e (in
+    a thread of their own) beside phase 5's CUDA run (with 6b, 6d, 7b and
+    7c), on two cores, while phase 5's CPU run (a cross-check, timed
+    by nothing) goes on on the others from the start.  Returns the
+    context, phase 2's errors and the inputs of the timed phases."""
     fg, bg = split_cores()
     every_core = os.sched_getaffinity(0)
     with ThreadPoolExecutor(1) as pool:
@@ -1331,18 +1751,23 @@ def checks_beside_cpu_run(work):
         small, cpu_run = start_crosscheck(work, pool, bg)
         os.sched_setaffinity(0, fg)
         try:
-            ctx = phase_env()
-            log(f"[phase 5] CPU run started on cores {sorted(bg)}; phases 1-3c's checks and phase 5 on CUDA "
+            with span("phase 1"):
+                ctx = phase_env()
+            log(f"[phase 5] CPU run started on cores {sorted(bg)}; phases 1-3d's checks and phase 5 on CUDA "
                 f"run on cores {sorted(fg)}")
-            max_err = phase_exact(ctx)
-            nw_inputs = phase_nw(ctx)
-            phylo_inputs = phase_phylo(ctx)
+            with span("phase 2"):
+                max_err = phase_exact(ctx)
+            with span("phase 3b, checks"):
+                inputs = dict(nw=phase_nw(ctx))
+            with span("phase 3c, checks"):
+                inputs["phylo"] = phase_phylo(ctx)
+            with span("phase 3d, checks"):
+                inputs["sw_bits"] = phase_sw_bits(ctx)
             # 6a in process in a thread of its own, beside 6e and phase 5's
             # CUDA run (subprocesses): the card's two cores are mostly
             # waiting on launches, and the window is set by the slower side
             with ThreadPoolExecutor(1) as side:
-                cascade = side.submit(phase_cascade, ctx, work, t5)
-                phase_config(ctx, work)
+                cascade = side.submit(phase_cascade_and_config, ctx, work)
                 phase_crosscheck(ctx, work, small, cpu_run, t5)
                 cascade.result()
         except BaseException:
@@ -1350,7 +1775,7 @@ def checks_beside_cpu_run(work):
             raise
         finally:
             os.sched_setaffinity(0, every_core)
-    return ctx, max_err, nw_inputs, phylo_inputs
+    return ctx, max_err, inputs
 
 
 def main() -> int:
@@ -1360,21 +1785,30 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
+    _CLOCK[0] = time.perf_counter()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     # in-process phases (6a's E-value fit) keep their caches under `work`
     os.environ["HOME"] = os.path.join(work, "home_inproc")
     try:
-        ctx, max_err, nw_inputs, phylo_inputs = checks_beside_cpu_run(work)
+        ctx, max_err, inputs = checks_beside_cpu_run(work)
         # from here on nothing runs beside the timed phases
-        log(f"[{time.perf_counter() - t_start:.1f} s] phases 3, 3b and 3c, timed ({ctx['smi']})")
-        timing = phase_times(ctx)
-        phase_nw_times(ctx, nw_inputs)
-        phase_phylo_times(ctx, phylo_inputs)
-        log(f"[{time.perf_counter() - t_start:.1f} s] phase 4")
-        launches = phase_slice(work)
-        log(f"[{time.perf_counter() - t_start:.1f} s] phase 6c")
-        phase_genetree(ctx, work)
+        log(f"[{clock():.1f} s] phases 3, 3b, 3c and 3d, timed ({ctx['smi']})")
+        with span("phase 3, times"):
+            timing = phase_times(ctx)
+        with span("phase 3b, times"):
+            phase_nw_times(ctx, inputs["nw"])
+        with span("phase 3c, times"):
+            phase_phylo_times(ctx, inputs["phylo"])
+        with span("phase 3d, times"):
+            phase_sw_bits_times(ctx, inputs["sw_bits"])
+        with span("phase 4"):
+            launches, inference = phase_slice(work)
+        with span("phase 7a"):
+            search_launches = phase_search(ctx, work)
+        with span("phase 7d"):
+            phase_partition(ctx, work, inference)
+        with span("phase 6c"):
+            phase_genetree(ctx, work)
     finally:
         stop_cli_runs()
         shutil.rmtree(work, ignore_errors=True)
@@ -1386,11 +1820,11 @@ def main() -> int:
             "name": f"sw_forward_{kind}", "route": "cuda",
             "source": "unicore_tpu_torch/csrc/sw.cu",
             "replaces": "unicore_tpu/ops/sw.py:183",
-            "launches": launches[kind], "max_abs_err": max_err[kind],
+            "launches": launches[kind] + search_launches[kind], "max_abs_err": max_err[kind],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
-    log(f"total {time.perf_counter() - t_start:.1f} s ({ctx['smi']})")
+    log(f"total {clock():.1f} s ({ctx['smi']})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -6,7 +6,6 @@ field must be equal."""
 import dataclasses
 
 import numpy as np
-import pytest
 
 from torch_port_helpers import port_env, stats_dir  # noqa: F401  (fixture)
 from unicore_tpu.align import engine as jeng_mod
@@ -97,9 +96,14 @@ def test_calibration_and_hits_match_jax(port_env):  # noqa: F811
 
 
 def test_traceback_fill_is_not_yet_ported(port_env):  # noqa: F811
-    from unicore_tpu_torch.runtime import errors as err
-
+    """traceback_fill was the typed "not yet ported" exit; it is ported:
+    no hits is a no-op, and a self-hit gets the identity path's columns
+    (tests/test_torch_search.py holds it against JAX)."""
     te = teng_mod.AlignmentEngine(device="cpu")
-    with pytest.raises(err.UnicoreError) as e:
-        te.traceback_fill([], [], [], [], [])
-    assert e.value.err_code == err.ERR_MODULE_NOT_IMPLEMENTED
+    te.traceback_fill([], [], [], [], [])
+    aa, ss = _families()
+    q_aa, q_ss = teng_mod.encode_db(aa[:1], ss[:1])
+    L = len(aa[0])
+    hit = teng_mod.Hit(qidx=0, tidx=0, score=1.0, qstart=0, qend=L - 1, tstart=0, tend=L - 1)
+    te.traceback_fill([hit], q_aa, q_ss, q_aa, q_ss)
+    assert (hit.fident, hit.alnlen, hit.mismatch, hit.gapopen) == (1.0, L, 0, 0)

@@ -4,8 +4,8 @@ from a numpy seed, on the CPU; the files they write must agree (trees
 after parsing, as torch_port_helpers.assert_same_tree; everything else
 byte for byte).  Counterparts of tests/test_genetree.py and of
 tests/test_genetree_batched.py's module test; plus gene-tree's defaults
-(iqtree -m JTT+F+I+G -B 1000) on one lockstep group, and the typed exit
-for a partition file."""
+(iqtree -m JTT+F+I+G -B 1000) on one lockstep group, and a partition
+file through both CLIs."""
 
 import shutil
 from types import SimpleNamespace
@@ -20,7 +20,6 @@ from torch_port_helpers import (  # noqa: F401
 from unicore_tpu.phylo import engine as jeng
 from unicore_tpu_torch.phylo import engine as teng
 from unicore_tpu_torch.phylo.newick import parse_newick
-from unicore_tpu_torch.runtime import errors
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread", "port_env")
 
@@ -175,11 +174,33 @@ def test_genetree_name_filter(tmp_path):
 
 @pytest.mark.parametrize("builder,options", [("iqtree", "-m JTT+F+G -p parts.nex"),
                                              ("fasttree", "-q parts.nex -gamma")])
-def test_genetree_partition_option_exits_before_touching_files(tmp_path, builder, options):
+def test_genetree_partition_option_exits_before_touching_files(tmp_path, builder, options,
+                                                               monkeypatch):
+    """A partition file in the tree options was the typed "not yet
+    ported" exit; it now runs the partitioned model through both CLIs:
+    the stale iqtree.treefile is deleted, and the outputs agree (trees
+    after parsing, reports but lnL byte for byte, lnL within
+    BLEN_LL_RTOL)."""
+    from unicore_tpu.cli import main as jax_main
     from unicore_tpu_torch.cli import main
 
-    _make_gene(tmp_path / "fasta", "geneA", {"a": "ACDE", "b": "ACDF", "c": "ACDW"})
-    before = files_of(tmp_path)
-    assert main(["gene-tree", str(tmp_path), "-T", builder, f"--tree-options={options}",
-                 "-v", "0"]) == errors.ERR_MODULE_NOT_IMPLEMENTED
-    assert files_of(tmp_path) == before  # the stale iqtree.treefile is still there
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "parts.nex").write_text("JTT+F+G, p1 = 1-5\nJTT+F+G, p2 = 6-10\n")
+    msa = {"a": "ACDEFGHIKL", "b": "ACDFFGHIKW", "c": "ACDWFGYIKL", "d": "MCDWFGYIRL"}
+    for side in ("jax", "port"):
+        _make_gene(tmp_path / side / "fasta", "geneA", msa)
+    for run, side in ((jax_main, "jax"), (main, "port")):
+        assert run(["gene-tree", side, "-T", builder, f"--tree-options={options}", "-v", "0"]) == 0
+    ref, out = files_of(tmp_path / "jax"), files_of(tmp_path / "port")
+    assert "fasta/geneA/iqtree.treefile" in out if builder == "iqtree" else \
+        "fasta/geneA/iqtree.treefile" not in out  # the stale one is gone
+    reports = [n for n in ref if n.endswith(("iqtree.iqtree", "iqtree.log"))]
+    for name in reports:
+        r, g = (dict(x.split(": ", 1) for x in d[name].decode().splitlines() if ": " in x)
+                for d in (ref, out))
+        jll, tll = float(r.pop("lnL")), float(g.pop("lnL"))
+        assert abs(tll - jll) <= 1e-4 * abs(jll), (name, jll, tll)
+        r.pop("seconds"), g.pop("seconds")
+        assert r == g and g["n_partitions"] == "2", name
+    assert_same_outputs({k: v for k, v in ref.items() if k not in reports},
+                        {k: v for k, v in out.items() if k not in reports})

@@ -50,7 +50,7 @@ from unicore_tpu_torch.phylo import models as tm
 from unicore_tpu_torch.phylo import newick as tn
 from unicore_tpu_torch.phylo import nj as tnj
 from unicore_tpu_torch.phylo import search as ts
-from unicore_tpu_torch.runtime import errors, profiling
+from unicore_tpu_torch.runtime import profiling
 from unicore_tpu_torch.synthetic import simulate_msa
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -473,22 +473,26 @@ def test_tree_engine_small_inputs_and_typed_exits(port_env, tmp_path):  # noqa: 
         t1, ll1, i1 = jeng.TreeEngine("iqtree").infer(msa)
         t2, ll2, i2 = eng.infer(msa)
         assert (t1.to_newick(), ll1, i1) == (t2.to_newick(), ll2, i2)
+    # a partition file (-p/-q) was the typed "not yet ported" exit; it now
+    # runs the partitioned model, in infer and in the batched entries
     part = tmp_path / "p.txt"
-    part.write_text("JTT, g1=1-4\n")
+    part.write_text("JTT, g1=1-2\nJTT, g2=3-4\n")
+    msa3 = {"a": "ACDE", "b": "ACDF", "c": "ACDF"}
     for opts in (f"-m JTT -p {part}", f"-m JTT -q {part}"):
-        with pytest.raises(errors.UnicoreError) as e:
-            eng.infer({"a": "ACDE", "b": "ACDF", "c": "ACDF"}, options=opts)
-        assert e.value.err_code == errors.ERR_MODULE_NOT_IMPLEMENTED
-    # the batched gene-tree entries too, before anything is written
+        t1, ll1, i1 = jeng.TreeEngine("iqtree").infer(msa3, options=opts)
+        t2, ll2, i2 = eng.infer(msa3, options=opts)
+        assert abs(ll2 - ll1) <= 1e-4 * abs(ll1)
+        assert {k: v for k, v in i1.items() if k not in ("lnL", "seconds")} == \
+            {k: v for k, v in i2.items() if k not in ("lnL", "seconds")}
+        assert i2["n_partitions"] == 2
+        assert sorted(x.name for x in t2.leaves()) == ["a", "b", "c"]
+    # the batched gene-tree entries send partitioned genes to infer
     msa_file = tmp_path / "g.fa"
     msa_file.write_text(">a\nACDE\n>b\nACDF\n>c\nACDF\n")
-    for call in (lambda: eng.infer_batched([{"a": "AC"}], options=f"-m JTT -p {part}"),
-                 lambda: eng.run_files([str(msa_file)], [str(tmp_path / "o")],
-                                       options=f"-m JTT -q {part}")):
-        with pytest.raises(errors.UnicoreError) as e:
-            call()
-        assert e.value.err_code == errors.ERR_MODULE_NOT_IMPLEMENTED
-    assert not (tmp_path / "o").exists()
+    (bt, bll, binfo), = eng.infer_batched([msa3], options=f"-m JTT -p {part}")
+    assert binfo["n_partitions"] == 2 and abs(bll - ll2) <= 1e-4 * abs(ll2)
+    eng.run_files([str(msa_file)], [str(tmp_path / "o")], options=f"-m JTT -q {part}")
+    assert "n_partitions: 2" in (tmp_path / "o" / "iqtree.iqtree").read_text()
 
 
 def test_species_tree_is_the_tree_write_proteomes_used(tmp_path, monkeypatch):

@@ -156,3 +156,30 @@ def test_loglik_multi_cuda_equals_cpu(tf32):
     assert torch.get_float32_matmul_precision() == "high"
     _ll(ref, got)
     _ll(np.stack([e.loglik_batch(c, b) for e, c, b in zip(engines["cpu"], cb, bb)]), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_parts", [3, 9])
+def test_partitioned_engine_cuda_matches_cpu_under_tf32(tf32, n_parts):
+    """phylo/partition.py's loglik, site_loglik and optimize_blens; nine
+    partitions run two chunks of PART_CHUNK, the second padded."""
+    need_cuda()
+    from unicore_tpu_torch.phylo.partition import PartitionedLikelihoodEngine
+
+    msa = simulate_msa(np.random.RandomState(30 + n_parts), 12, 900)
+    names, seqs = list(msa), list(msa.values())
+    edges = np.linspace(0, 900, n_parts + 1).astype(int)
+    parts = [(f"g{k}", int(edges[k]) + 1, int(edges[k + 1])) for k in range(n_parts)]
+    kw = dict(spec=tm.ModelSpec.parse("JTT+F+I+G"), alpha=0.7, p_inv=0.05)
+    cpu = PartitionedLikelihoodEngine(names, seqs, parts, device="cpu", **kw)
+    gpu = PartitionedLikelihoodEngine(names, seqs, parts, **kw)
+    c, b = _nj(msa)
+    ll_c, ll_g = cpu.loglik(c, b), gpu.loglik(c, b)
+    assert abs(ll_g - ll_c) <= LL_RTOL * abs(ll_c)
+    sc, sg = cpu.site_loglik(c, b), gpu.site_loglik(c, b)
+    assert np.all(np.abs(sg - sc) <= SITE_ATOL + SITE_RTOL * np.abs(sc))
+    bc, lc = cpu.optimize_blens(c, b, steps=30)
+    bg, lg = gpu.optimize_blens(c, b, steps=30)
+    assert abs(lg - lc) <= BLEN_LL_RTOL * abs(lc)
+    assert np.all(np.abs(bg - bc) <= BLEN_ATOL + BLEN_RTOL * bc)
+    assert torch.get_float32_matmul_precision() == "high"

@@ -153,3 +153,23 @@ def test_canopy_grams_exact_on_cuda_under_tf32():
     finally:
         torch.set_float32_matmul_precision(prev)
     assert out == ref and len(ref[0]) < len(aa)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lb,B", [(64, 64), (512, 8)])
+def test_traceback_forward_bits_cuda_matches_cpu(Lb, B):
+    """ops/sw_bits.sw_forward_bits (the m8 traceback's DP, PyTorch ops) on
+    the card against the CPU, bit-identical on (bits, best_i, best_j,
+    score), on every window kind and both gap pairs."""
+    need_cuda()
+    from unicore_tpu_torch.ops.sw_bits import sw_forward_bits
+    from unicore_tpu_torch.synthetic import SW_WINDOW_KINDS, sw_windows
+
+    rng = np.random.RandomState(Lb + B)
+    for kind in SW_WINDOW_KINDS:
+        for go, ge in ((100, 10), (30, 5)):
+            t = as_torch(*sw_windows(rng, B, Lb, kind))
+            cpu = sw_forward_bits(*t, go, ge)
+            gpu = sw_forward_bits(*(x.cuda() for x in t), go, ge)
+            for x, y in zip(cpu, gpu):
+                assert y.is_cuda and torch.equal(x, y.cpu()), (kind, go)

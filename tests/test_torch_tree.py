@@ -17,7 +17,7 @@ from torch_port_helpers import (  # noqa: F401
 )
 from unicore_tpu.cli import main as jax_main
 from unicore_tpu_torch.cli import main as port_main
-from unicore_tpu_torch.runtime import errors, profiling
+from unicore_tpu_torch.runtime import profiling
 
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -147,18 +147,26 @@ def test_tree_builders_skip_path_match_jax(port_env, jax_run, builder):  # noqa:
     assert out["tree.chk"] == b"1"
 
 
-def test_tree_partition_options_exit_before_writing(port_env, jax_run, tmp_path):  # noqa: F811
-    """Partitioned models (-p/-q in the tree options) are not ported: the
-    typed exit of `tree` and of `easy-core` comes before anything is
-    written, easy-core's createdb, cluster and profile included."""
-    part = tmp_path / "parts.txt"
-    part.write_text("JTT, g=1-10\n")
-    for flag in ("-p", "-q"):
-        opts = ["--tree-options", f"-m JTT {flag} {part}", "-v", "0"]
-        tree_argv = ["tree", str(jax_run / "out" / "proteome" / "proteome_db"),
-                     str(jax_run / "out" / "profile"), str(port_env / "out")]
-        easy_argv = ["easy-core", str(jax_run / "in"), str(port_env / "out"), "mock",
-                     str(port_env / "tmp")]
-        for argv in (tree_argv, easy_argv):
-            assert port_main(argv + opts) == errors.ERR_MODULE_NOT_IMPLEMENTED
-            assert not (port_env / "out").exists() and not (port_env / "tmp").exists()
+def test_tree_partition_options_exit_before_writing(port_env, jax_run):  # noqa: F811
+    """Partitioned models (-p/-q in the tree options) were the typed "not
+    yet ported" exit of `tree` and `easy-core`; both now run them.  On
+    copies of the fixture's `-n` output (supermatrix and partition file
+    in place: the skip path), `tree -q` and `easy-core -p` (its createdb,
+    cluster and profile skipped by their checkpoints) through both CLIs:
+    the same files, the inference outputs compared after parsing, and
+    n_partitions the partition file's line count."""
+    n_parts = len((jax_run / "out" / "tree" / "combined.fasta.partitions").read_text().splitlines())
+    for flag, cmd in (("-q", "tree"), ("-p", "easy-core")):
+        for main, side in ((jax_main, "jax"), (port_main, "port")):
+            out = port_env / flag / side
+            shutil.copytree(jax_run / "out", out)
+            opts = ["--tree-options", f"-m JTT+F+G -B 50 {flag} {out / 'tree' / 'combined.fasta.partitions'}",
+                    "-v", "0"]
+            if cmd == "tree":
+                argv = ["tree", str(out / "proteome" / "proteome_db"), str(out / "profile"), str(out / "tree")]
+            else:
+                argv = ["easy-core", str(jax_run / "in"), str(out), "mock", str(port_env / flag / "tmp")]
+            assert main(argv + opts) == 0
+        got = _assert_same_outputs(port_env / flag / "jax", port_env / flag / "port")
+        assert got["tree/tree.chk"] == b"1"
+        assert _report(got["tree/iqtree.iqtree"])["n_partitions"] == str(n_parts) and n_parts >= 3

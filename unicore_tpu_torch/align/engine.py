@@ -17,13 +17,15 @@ goes through `_forward_batch`, which calls the Hopper kernel's wrapper
 runs the kernel's plain version.  Pairs longer than `long_threshold` take
 banded SW (ops/banded.py) in plain PyTorch on the same device.
 
-Not ported yet: the multi-device branches of the JAX engine (one H100
-runs one device) and `traceback_fill` (reached only with
---min-seq-id > 0; it needs ops/sw_bits).
+`traceback_fill` (the m8 columns of `search`, and `--min-seq-id > 0`)
+runs its short windows' forward DPs on the engine's device through
+ops/sw_bits.py and its long windows on the host.  Not ported: the
+multi-device branches of the JAX engine (one H100 runs one device).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -34,8 +36,8 @@ from unicore_tpu_torch.alphabets import encode_3di, encode_aa
 from unicore_tpu_torch.align import stats
 from unicore_tpu_torch.matrices import W_3DI, W_AA, get_3di_matrix, get_aa_matrix
 from unicore_tpu_torch.runtime import device as device_mod
-from unicore_tpu_torch.runtime import errors as err
 from unicore_tpu_torch.runtime import logging as msg
+from unicore_tpu_torch.runtime import profiling
 
 
 @dataclass
@@ -614,13 +616,159 @@ class AlignmentEngine:
         return out
 
     # ------------------------------------------------------------------
-    def traceback_fill(self, hits, q_aa, q_ss, t_aa, t_ss) -> None:
-        """Exact traceback for the m8 columns (fident, alnlen, mismatch,
-        gapopen); reached only with --min-seq-id > 0.  Not yet ported: it
-        needs ops/sw_bits."""
-        err.error(err.ERR_MODULE_NOT_IMPLEMENTED,
-                  "traceback_fill (--min-seq-id > 0) is not yet ported to "
-                  "unicore_tpu_torch (needs ops/sw_bits)")
+    def traceback_fill(
+        self,
+        hits: List[Hit],
+        q_aa: Sequence[np.ndarray], q_ss: Sequence[np.ndarray],
+        t_aa: Sequence[np.ndarray], t_ss: Sequence[np.ndarray],
+    ) -> None:
+        """Exact traceback on the aligned windows; fills m8 columns in place.
+
+        Short windows (<= long_threshold) batch their forward DPs into
+        device dispatches on the engine's device (ops/sw_bits.py:
+        direction bits + O(path) host decode, bit-identical to the NumPy
+        Gotoh); long windows take the banded host traceback per hit,
+        seeded by vote_diagonal or, failing that, vote_diagonal_sensitive
+        with a doubled band; a window with no seed, or whose band misses
+        the optimum, takes the full-window NumPy Gotoh.  The window scores
+        are rounded on the host in float64, as the JAX package rounds
+        them.  Counters: `traceback.batched`, `traceback.banded` and
+        `traceback.full` count the windows of each route,
+        `traceback.fill_seconds` the wall time of the call."""
+        from unicore_tpu_torch.ops.sw_ref import sw_traceback_ref
+
+        t_fill = time.perf_counter()
+        p = self.params
+        _qc_cache: Dict[int, np.ndarray] = {}
+
+        def qbias_win(qidx: int, lo: int, hi: int):
+            """Forward-pass bias values sliced to the hit window (same
+            values the kernel scored with, so the traceback re-derives
+            the kernel's optimal alignment)."""
+            if not p.comp_bias_corr:
+                return None
+            if qidx not in _qc_cache:
+                from unicore_tpu_torch.align.bias import composition_bias
+                _qc_cache[qidx] = composition_bias(
+                    np.asarray(q_aa[qidx])[None, :], np.asarray(q_ss[qidx])[None, :],
+                    np.array([len(q_aa[qidx])]), self.saa, self.s3d,
+                    p.w_aa, p.w_3di,
+                )[0]
+            return _qc_cache[qidx][lo:hi]
+
+        def window_scores(qa, qs, ta, ts, qc_win):
+            s = (
+                p.w_aa * self.saa[qa[:, None], ta[None, :]]
+                + p.w_3di * self.s3d[qs[:, None], ts[None, :]]
+            )
+            if qc_win is not None:
+                s = s + np.asarray(qc_win)[:, None]
+            return s
+
+        def full_gotoh(qa, qs, ta, ts, qc_win):
+            profiling.add_counter("traceback.full", 1)
+            s = window_scores(qa, qs, ta, ts, None).astype(np.float64)
+            if qc_win is not None:
+                s = s + np.asarray(qc_win)[:, None]
+            _, _, _, _, _, q_arr, t_arr = sw_traceback_ref(s, p.gap_open, p.gap_extend)
+            return q_arr, t_arr
+
+        # ---- batch the short windows' forward DPs on the device ----
+        short_keys: List[int] = []
+        short_S: List[np.ndarray] = []
+        for k, h in enumerate(hits):
+            wq = h.qend - h.qstart + 1
+            wt = h.tend - h.tstart + 1
+            if not (p.long_threshold and max(wq, wt) > p.long_threshold):
+                qa = q_aa[h.qidx][h.qstart : h.qend + 1]
+                qs = q_ss[h.qidx][h.qstart : h.qend + 1]
+                ta = t_aa[h.tidx][h.tstart : h.tend + 1]
+                ts = t_ss[h.tidx][h.tstart : h.tend + 1]
+                s = window_scores(qa, qs, ta, ts, qbias_win(h.qidx, h.qstart, h.qend + 1))
+                short_keys.append(k)
+                short_S.append(np.rint(s).astype(np.int32))
+        short_paths: Dict[int, tuple] = {}
+        if short_S:
+            from unicore_tpu_torch.ops.sw_bits import sw_traceback_batch
+            res = sw_traceback_batch(
+                short_S, int(p.gap_open), int(p.gap_extend), device=self.device)
+            for k, (q_arr, t_arr, _) in zip(short_keys, res):
+                short_paths[k] = (q_arr, t_arr)
+        profiling.add_counter("traceback.batched", len(short_S))
+
+        for k, h in enumerate(hits):
+            qa = q_aa[h.qidx][h.qstart : h.qend + 1]
+            qs = q_ss[h.qidx][h.qstart : h.qend + 1]
+            ta = t_aa[h.tidx][h.tstart : h.tend + 1]
+            ts = t_ss[h.tidx][h.tstart : h.tend + 1]
+            qc_win = qbias_win(h.qidx, h.qstart, h.qend + 1)
+            if k in short_paths:
+                q_arr, t_arr = short_paths[k]
+            elif p.long_threshold and max(len(qa), len(ta)) > p.long_threshold:
+                # long window: banded traceback (O(L*W) instead of the
+                # O(L^2) full DP matrices, which would be ~0.5 GB at 4k)
+                from unicore_tpu_torch.ops.banded import (
+                    band_scores_ref, sw_traceback_banded_ref, vote_diagonal,
+                    vote_diagonal_sensitive,
+                )
+                d0 = vote_diagonal(qa, qs, ta, ts)
+                wide = 0
+                if d0 is None:
+                    # sensitive fallback seeds (3Di-only / reduced-AA),
+                    # doubled band — mirrors the forward banded pass
+                    d0 = vote_diagonal_sensitive(qa, qs, ta, ts)
+                    wide = 1
+                if d0 is None:
+                    # last resort: full-window Gotoh.  A hit reaching the
+                    # traceback already passed the score/E-value gates,
+                    # so it never gets fabricated m8 columns
+                    # (convertalis, search.rs:56-61, reports only real
+                    # alignments)
+                    q_arr, t_arr = full_gotoh(qa, qs, ta, ts, qc_win)
+                else:
+                    profiling.add_counter("traceback.banded", 1)
+                    W = max(p.band_width << wide,
+                            ((abs(len(qa) - len(ta)) + 255) // 128) * 128)
+                    sb, _ = band_scores_ref(qa, qs, ta, ts, d0, W,
+                                            self.saa, self.s3d, p.w_aa, p.w_3di,
+                                            qc=qc_win)
+                    _, q_arr, t_arr = sw_traceback_banded_ref(
+                        sb, d0, p.gap_open, p.gap_extend)
+                    if len(q_arr) == 0:
+                        # band missed the optimum entirely: full-window
+                        # Gotoh rather than a fabricated row
+                        q_arr, t_arr = full_gotoh(qa, qs, ta, ts, qc_win)
+            else:  # unreachable: every short window is in short_paths
+                raise AssertionError("short hit missing from batched traceback")
+            # unreachable post-gating: a hit reaching traceback has
+            # score > 0, so every path above yields a non-empty path; a
+            # default fill here would be a fabricated m8 row, so fail
+            # loudly instead
+            assert len(q_arr) > 0, (
+                f"empty traceback for gated hit q={h.qidx} t={h.tidx} "
+                f"window=({h.qstart}:{h.qend},{h.tstart}:{h.tend}) "
+                f"score={h.score}"
+            )
+            matches = 0
+            mismatches = 0
+            gapopens = 0
+            in_gap = False
+            for qi_, ti_ in zip(q_arr, t_arr):
+                if qi_ >= 0 and ti_ >= 0:
+                    in_gap = False
+                    if qa[qi_] == ta[ti_]:
+                        matches += 1
+                    else:
+                        mismatches += 1
+                else:
+                    if not in_gap:
+                        gapopens += 1
+                    in_gap = True
+            h.alnlen = len(q_arr)
+            h.mismatch = mismatches
+            h.gapopen = gapopens
+            h.fident = matches / h.alnlen if h.alnlen else 0.0
+        profiling.add_counter("traceback.fill_seconds", time.perf_counter() - t_fill)
 
     # ------------------------------------------------------------------
     def probe(self) -> bool:

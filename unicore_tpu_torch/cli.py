@@ -1,15 +1,14 @@
-"""unicore-tpu-torch CLI — the parser of unicore_tpu/cli.py, and the
-subcommands ported so far.
+"""unicore-tpu-torch CLI — the parser of unicore_tpu/cli.py, and its ten
+subcommands.
 
 `build_parser` and `resolve` are copies of unicore_tpu's (the same
 subcommands, flags, defaults and pre-wired paths), so a command line
-means the same to both packages.  `run` dispatches `createdb`, `cluster`
-(the cascade above 5,000 sequences), `profile`, `tree` (MSA, supermatrix
-and tree inference with the iqtree, fasttree and raxml-ng schedules),
-`gene-tree` (batched per-gene inference), `config`, `easy-core` and
-`version`; `search` and `easy-search`, and tree options naming a
-partition file (-p/-q), exit with the typed "not yet ported" error
-(ERR_MODULE_NOT_IMPLEMENTED) before anything is written.
+means the same to both packages.  `run` dispatches all ten subcommands:
+`createdb`, `cluster` (the cascade above 5,000 sequences), `search`,
+`profile`, `tree` (MSA, supermatrix and tree inference with the iqtree,
+fasttree and raxml-ng schedules, partitioned with -p/-q), `gene-tree`
+(batched per-gene inference), `config`, `easy-core`, `easy-search` and
+`version`.
 
 The device is chosen in runtime/device.py: CUDA, unless
 UNICORE_TPU_TORCH_DEVICE=cpu asks for the CPU.  With
@@ -299,7 +298,8 @@ def resolve(ns: argparse.Namespace) -> SimpleNamespace:
     return a
 
 
-PORTED = ("createdb", "cluster", "profile", "tree", "gene-tree", "config", "easy-core", "version")
+PORTED = ("createdb", "cluster", "search", "profile", "tree", "gene-tree", "config",
+          "easy-core", "easy-search", "version")
 
 
 def run(args: SimpleNamespace) -> None:
@@ -319,16 +319,14 @@ def run(args: SimpleNamespace) -> None:
         version.run()
         return
     if cmd not in PORTED:
-        err.error(err.ERR_MODULE_NOT_IMPLEMENTED,
-                  f"'{cmd}' is not yet ported to unicore_tpu_torch "
-                  f"(ported: {', '.join(PORTED)})")
-    from unicore_tpu_torch.modules import cluster, config, createdb, genetree, profile, tree
-    from unicore_tpu_torch.workflow import easy_core
-    module = {"createdb": createdb, "cluster": cluster, "profile": profile,
-              "tree": tree, "gene-tree": genetree, "config": config,
-              "easy-core": easy_core}[cmd]
-    if cmd == "easy-core":
-        tree.check_ported(args)  # before the stages ahead of tree write anything
+        err.error(err.ERR_UNKNOWN_MODULE, cmd)
+    from unicore_tpu_torch.modules import (
+        cluster, config, createdb, genetree, profile, search, tree,
+    )
+    from unicore_tpu_torch.workflow import easy_core, easy_search
+    module = {"createdb": createdb, "cluster": cluster, "search": search,
+              "profile": profile, "tree": tree, "gene-tree": genetree, "config": config,
+              "easy-core": easy_core, "easy-search": easy_search}[cmd]
     with profiling.stage(cmd):
         module.run(args)
 

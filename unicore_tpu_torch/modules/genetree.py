@@ -11,10 +11,6 @@ modules/genetree.rs:9-146):
     default options include the reference's classic-raxml branch
     (genetree.rs:45: "raxml" uses "-m PROTCATJTT -p 12345 -x 12345 -f a
     -N 1000" — both "raxml" and "raxml-ng" map to the raxml-ng schedule)
-
-Tree options naming a partition file (-p/-q) are not ported yet: they
-exit with ERR_MODULE_NOT_IMPLEMENTED before any file is deleted or
-written.
 """
 
 from __future__ import annotations
@@ -22,7 +18,6 @@ from __future__ import annotations
 import os
 
 from unicore_tpu_torch.modules.tree import DEFAULT_TREE_OPTIONS, run_aligner, run_tree_builder
-from unicore_tpu_torch.phylo.engine import check_ported_options
 from unicore_tpu_torch.runtime import errors as err
 from unicore_tpu_torch.runtime import logging as msg
 
@@ -53,13 +48,6 @@ def run(args) -> None:
         tree_options = DEFAULT_GENETREE_OPTIONS.get(tree_builder)
         if tree_options is None and tree_builder != "raxml-ng":
             err.error(err.ERR_GENERAL, "Unrecognized tree builder")
-    builder = "raxml-ng" if tree_builder == "raxml" else tree_builder
-    if not tree_options:
-        # the raxml-ng branch has no DEFAULT_GENETREE_OPTIONS entry and
-        # must not lose --all: run_tree_builder's substitution
-        tree_options = DEFAULT_TREE_OPTIONS.get(builder, DEFAULT_TREE_OPTIONS["iqtree"])
-    check_ported_options(tree_options)  # before anything is deleted or written
-
     names_list = []
     if names:
         if not os.path.isfile(names):
@@ -97,6 +85,11 @@ def run(args) -> None:
         msa_files.append(msa)
         out_dirs.append(gene_dir)
 
+    builder = "raxml-ng" if tree_builder == "raxml" else tree_builder
+    if not tree_options:
+        # mirror run_tree_builder's substitution (the raxml-ng branch has
+        # no DEFAULT_GENETREE_OPTIONS entry and must not lose --all)
+        tree_options = DEFAULT_TREE_OPTIONS.get(builder, DEFAULT_TREE_OPTIONS["iqtree"])
     from unicore_tpu_torch.runtime import registry
     engine = registry.get(builder)()
     if hasattr(engine, "run_files"):

@@ -17,10 +17,6 @@ modules/tree.rs:17-163):
     engine's device) with default options (tree.rs:140-157) writing the
     per-builder output files, under the profiling stage `tree.inference`
   * checkpoints tree.chk 0/1
-
-Tree options naming a partition file (-p/-q) are not ported yet: a run
-that would reach inference with them exits with
-ERR_MODULE_NOT_IMPLEMENTED before it writes anything.
 """
 
 from __future__ import annotations
@@ -43,12 +39,6 @@ DEFAULT_TREE_OPTIONS = {
     "raxml-ng": "--model JTT+F+I+G --seed 12345 --all --tree pars{90},rand{10}",
     "fasttree": "-gamma -boot 1000",
 }
-
-
-def _tree_options(tree_builder: str, tree_options) -> str:
-    return tree_options if tree_options else DEFAULT_TREE_OPTIONS.get(
-        tree_builder, DEFAULT_TREE_OPTIONS["iqtree"]
-    )
 
 
 def _msa_engine(aligner: str, options):
@@ -124,20 +114,12 @@ def run_tree_builder(
 
     if tree_builder not in DEFAULT_TREE_OPTIONS and tree_builder != "raxml":
         err.error(err.ERR_GENERAL, "Unrecognized tree builder")
-    options = _tree_options(tree_builder, tree_options)
+    options = tree_options if tree_options else DEFAULT_TREE_OPTIONS.get(
+        tree_builder, DEFAULT_TREE_OPTIONS["iqtree"]
+    )
     name = "raxml-ng" if tree_builder == "raxml" else tree_builder
     engine = registry.get(name)()
     return engine.run_file(msa_fasta, output_dir, options=options, threads=threads)
-
-
-def check_ported(args) -> None:
-    """The typed exit for tree options the port does not run yet (a
-    partition file), where the run would reach inference; raised before
-    anything is written."""
-    combined = os.path.join(args.tree_output, "combined.fasta")
-    if not args.tree_no_inference or os.path.isfile(combined):
-        from unicore_tpu_torch.phylo.engine import check_ported_options
-        check_ported_options(_tree_options(args.tree_tree_builder, args.tree_tree_options))
 
 
 def run(args) -> None:
@@ -151,11 +133,10 @@ def run(args) -> None:
     tree_options = args.tree_tree_options
     threshold = args.tree_threshold
 
-    combined = os.path.join(output, "combined.fasta")
-    check_ported(args)
-
     os.makedirs(output, exist_ok=True)
     chkpnt.write_checkpoint(os.path.join(output, "tree.chk"), "0")
+
+    combined = os.path.join(output, "combined.fasta")
 
     if not os.path.isfile(combined):
         gene_fasta_dir = os.path.join(output, "fasta")

@@ -21,7 +21,11 @@ the original (i, j) coordinates.
 
 `sw_forward_banded` is plain PyTorch on the pair batch's device (the JAX
 function is XLA code, not a Pallas kernel), in the JAX function's float32
-operation order: bit-identical to it on the same inputs.
+operation order: bit-identical to it on the same inputs.  The host
+traceback of a long window (`band_scores_ref`, `sw_traceback_banded_ref`:
+numpy float64 with NEG = -1e9, the m8 fill of align/engine.py's
+`traceback_fill`) is a copy of the JAX package's.  Not ported: the
+multi-device `sw_forward_banded_sharded`.
 """
 
 from __future__ import annotations
@@ -266,3 +270,106 @@ def sw_forward_banded(
         bk = torch.where(upd, row_arg, bk)
     tend = (bi + d0 + bk - W2).clamp(0, Lt - 1).to(torch.int32)
     return best, bi, tend
+
+
+# ---------------------------------------------------------------------------
+# host traceback (numpy float64; copies of the JAX package's)
+# ---------------------------------------------------------------------------
+
+def band_scores_ref(
+    q_aa: np.ndarray, q_ss: np.ndarray, t_aa: np.ndarray, t_ss: np.ndarray,
+    d0: int, W: int,
+    saa: np.ndarray, s3d: np.ndarray, w_aa: float, w_3di: float,
+    qc: np.ndarray = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side banded score matrix (Lq, W) + the J index map."""
+    Lq, Lt = len(q_aa), len(t_aa)
+    W2 = W // 2
+    J = np.arange(Lq)[:, None] + d0 + np.arange(W)[None, :] - W2
+    valid = (J >= 0) & (J < Lt)
+    Jc = np.clip(J, 0, Lt - 1)
+    s = (
+        w_aa * saa[q_aa[:, None], t_aa[Jc]]
+        + w_3di * s3d[q_ss[:, None], t_ss[Jc]]
+    ).astype(np.float64)
+    if qc is not None:
+        s = s + np.asarray(qc)[:, None]
+    s[~valid] = NEG
+    return s, J
+
+
+def sw_traceback_banded_ref(
+    s_band: np.ndarray,  # (Lq, W) banded scores (invalid cells ~NEG)
+    d0: int,
+    go: float, ge: float,
+) -> Tuple[float, np.ndarray, np.ndarray]:
+    """Banded Gotoh with traceback.
+
+    Returns (score, q_idx, t_idx) in ORIGINAL coordinates — the same
+    interface as sw_traceback_ref (-1 marks gap positions) — but with
+    O(Lq*W) memory instead of O(Lq*Lt).  Cell (i, k) of the band is
+    matrix cell (i, i + d0 + k - W/2)."""
+    Lq, W = s_band.shape
+    W2 = W // 2
+    H = np.zeros((Lq + 1, W))
+    E = np.full((Lq + 1, W), NEG)
+    F = np.full((Lq + 1, W), NEG)
+    jge = ge * np.arange(W)
+    for i in range(1, Lq + 1):
+        # up-predecessor is (i-1, k+1) in band coords
+        H_up = np.concatenate([H[i - 1, 1:], [NEG]])
+        F_up = np.concatenate([F[i - 1, 1:], [NEG]])
+        F[i] = np.maximum(H_up - go, F_up - ge)
+        h0 = np.maximum(0.0, np.maximum(H[i - 1] + s_band[i - 1], F[i]))
+        # in-row prefix scan for E, then rebuild the Gotoh-consistent E
+        # from the final row (same trick as sw_traceback_ref)
+        P = np.maximum.accumulate(h0 + jge)
+        Pexc = np.concatenate([[NEG], P[:-1]])
+        H[i] = np.maximum(h0, Pexc - go + ge - jge)
+        P2 = np.maximum.accumulate(H[i] + jge)
+        P2exc = np.concatenate([[NEG], P2[:-1]])
+        E[i] = P2exc - go + ge - jge
+    flat = np.argmax(H)
+    bi, bk = np.unravel_index(flat, H.shape)
+    score = H[bi, bk]
+
+    qi, kk = int(bi), int(bk)
+    q_idx, t_idx = [], []
+    state = "H"
+    while qi > 0:
+        j = (qi - 1) + d0 + kk - W2  # 0-based target index of cell (qi, kk)
+        if j < 0:
+            break
+        h = H[qi, kk]
+        if h == 0 and state == "H":
+            break
+        if state == "H":
+            if h == E[qi, kk]:
+                state = "E"
+                continue
+            if h == F[qi, kk]:
+                state = "F"
+                continue
+            q_idx.append(qi - 1)
+            t_idx.append(j)
+            qi -= 1  # diag: same k
+        elif state == "E":  # gap consuming target: left in band coords
+            q_idx.append(-1)
+            t_idx.append(j)
+            if kk == 0:
+                break
+            if E[qi, kk] == H[qi, kk - 1] - go:
+                state = "H"
+            kk -= 1
+        else:  # F: gap consuming query: up-right in band coords
+            q_idx.append(qi - 1)
+            t_idx.append(-1)
+            if kk + 1 >= W:
+                break
+            if F[qi, kk] == H[qi - 1, kk + 1] - go:
+                state = "H"
+            qi -= 1
+            kk += 1
+    q_idx.reverse()
+    t_idx.reverse()
+    return float(score), np.array(q_idx, dtype=np.int32), np.array(t_idx, dtype=np.int32)

@@ -19,9 +19,10 @@ Counterpart of unicore_tpu/phylo/engine.py: the same schedules, option
 parsing, model optimization, bootstrap and output files, over the port's
 LikelihoodEngine on the engine's device (runtime/device.py), and the
 batched gene-tree entries `infer_batched`/`run_files` (phylo/genebatch.py:
-genes grouped by taxa count and pattern bucket, NNI in lockstep).  Not
-ported yet: partitioned models (`-p`/`-q`, phylo/partition.py), a typed
-ERR_MODULE_NOT_IMPLEMENTED raised before anything is written.
+genes grouped by taxa count and pattern bucket, NNI in lockstep).  Tree
+options naming a partition file (`-p FILE` / `-q FILE`) run the
+edge-linked partitioned model (phylo/partition.py); such genes leave the
+lockstep batch for `infer`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,7 +46,6 @@ from unicore_tpu_torch.phylo.newick import Node
 from unicore_tpu_torch.phylo.nj import neighbor_joining, protein_distances
 from unicore_tpu_torch.phylo.search import TreeSearch
 from unicore_tpu_torch.runtime import device as device_mod
-from unicore_tpu_torch.runtime import errors as err
 from unicore_tpu_torch.runtime import logging as msg
 from unicore_tpu_torch.runtime import profiling
 
@@ -64,15 +64,6 @@ def _parse_tokens(options: str) -> Dict[str, str]:
             out[t] = ""
         i += 1
     return out
-
-
-def check_ported_options(options: str) -> None:
-    """The typed exit for tree options the port does not run yet: a
-    partition file (`-p FILE` / `-q FILE`, as the JAX engine reads it)."""
-    opts = _parse_tokens(options)
-    if opts.get("-p") or opts.get("-q"):
-        err.error(err.ERR_MODULE_NOT_IMPLEMENTED,
-                  "partitioned models (-p/-q) are not yet ported to unicore_tpu_torch")
 
 
 class TreeEngine:
@@ -95,11 +86,11 @@ class TreeEngine:
         blen_steps: int = 150,
     ) -> Tuple[Node, float, Dict]:
         """Run inference; returns (tree_with_supports, lnL, info)."""
-        check_ported_options(options)
         t_start = time.time()
-        _, model_str, n_boot, seed, n_starts, max_nni_rounds = self._parse_opts(
+        opts, model_str, n_boot, seed, n_starts, max_nni_rounds = self._parse_opts(
             options, model_str, n_boot, seed, n_starts, max_nni_rounds
         )
+        partition_file = opts.get("-p") or opts.get("-q")
         names = list(msa.keys())
         seqs = [msa[n] for n in names]
         if len(names) < 3:
@@ -111,11 +102,26 @@ class TreeEngine:
         model = SubstModel.build(spec, empirical_freqs=freqs, alpha=1.0, p_inv=0.02 if spec.plus_i else 0.0)
 
         t0 = time.time()
-        engine = LikelihoodEngine(names, seqs, model, device=self.device)
-        msg.println_message(
-            f"  {len(names)} taxa, {engine.L} sites, {engine.patterns.shape[1]} patterns", 4
-        )
-        profiling.add_counter("phylo.patterns", engine.patterns.shape[1])
+        if partition_file:
+            from unicore_tpu_torch.phylo.partition import (
+                PartitionedLikelihoodEngine, parse_partition_file,
+            )
+            parts = parse_partition_file(partition_file)
+            engine = PartitionedLikelihoodEngine(
+                names, seqs, parts, spec=spec,
+                alpha=1.0, p_inv=0.02 if spec.plus_i else 0.0, device=self.device,
+            )
+            msg.println_message(
+                f"  {len(names)} taxa, {engine.L} sites, {engine.G} partitions", 4
+            )
+            n_patterns = len(engine.weights)
+        else:
+            engine = LikelihoodEngine(names, seqs, model, device=self.device)
+            msg.println_message(
+                f"  {len(names)} taxa, {engine.L} sites, {engine.patterns.shape[1]} patterns", 4
+            )
+            n_patterns = engine.patterns.shape[1]
+        profiling.add_counter("phylo.patterns", n_patterns)
 
         # starting tree(s)
         D = protein_distances(names, seqs)
@@ -142,8 +148,8 @@ class TreeEngine:
         info = {
             "n_taxa": len(names),
             "n_sites": engine.L,
-            "n_patterns": int(engine.patterns.shape[1]),
-            "n_partitions": 1,
+            "n_patterns": int(n_patterns),
+            "n_partitions": getattr(engine, "G", 1),
             "lnL": best_ll,
             "alpha": model.alpha,
             "p_inv": model.p_inv,
@@ -222,8 +228,8 @@ class TreeEngine:
         Genes are grouped by (taxa count, pattern bucket); each group runs
         its NNI searches in LOCKSTEP with cross-gene candidate batching
         (phylo/genebatch.py), its engines padded to the bucket.  Big genes
-        (>= 48 taxa) take the per-gene `infer` (its incremental
-        partial-CLV path wins there).  Per gene: the same search schedule,
+        (>= 48 taxa) and partitioned runs take the per-gene `infer` (its
+        incremental partial-CLV path wins there).  Per gene: the same search schedule,
         accept logic, model optimization and bootstrap as solo `infer`,
         and the report's `n_patterns` is the unpadded count.  Counters:
         `phylo.genes`, `phylo.gene_groups`, and `phylo.seconds` per group
@@ -231,10 +237,10 @@ class TreeEngine:
         from unicore_tpu_torch.phylo.genebatch import lockstep_optimize, pattern_bucket
         from unicore_tpu_torch.phylo.likelihood import compress_patterns
 
-        check_ported_options(options)
-        _, model_str, n_boot, seed, n_starts, max_nni_rounds = self._parse_opts(
+        opts, model_str, n_boot, seed, n_starts, max_nni_rounds = self._parse_opts(
             options, None, None, seed, n_starts, max_nni_rounds
         )
+        partitioned = bool(opts.get("-p") or opts.get("-q"))
         results: List[Optional[Tuple[Node, float, Dict]]] = [None] * len(msas)
 
         groups: Dict[Tuple[int, int], List[int]] = {}
@@ -245,7 +251,7 @@ class TreeEngine:
             if len(names) < 3:
                 results[g] = self._trivial_tree(names, seqs)
                 continue
-            if len(names) >= 48:
+            if len(names) >= 48 or partitioned:
                 results[g] = self.infer(
                     msa, options=options, seed=seed, n_starts=n_starts,
                     max_nni_rounds=max_nni_rounds, blen_steps=blen_steps,

@@ -366,25 +366,25 @@ def _site_loglik_batch_impl(children_b, blens_b, tips, mp, pattern_chunk=0):
                       for t_k in _chunks(tips, pattern_chunk, 1)], dim=-1)
 
 
-def _optimize_blens_impl(children, blens0, tips, weights, mp, steps: int,
-                         lr: float = 0.05, pattern_chunk: int = 0):
+def _adam_log_blens(blens0, terms, steps: int, lr: float = 0.05):
     """Adam on log-branch-lengths, the JAX package's loop step for step:
     value and gradient at x; best_x/best_v updated on a strict `<` before
     the step; the step with optax.adam's defaults (b1 0.9, b2 0.999, eps
     1e-8, eps_root 0); after the last step one more evaluation at the
-    final x.  The gradient comes from torch.autograd; with pattern
-    chunking it is the sum of the chunks' gradients, each chunk's graph
-    freed before the next is built.  Returns (exp(best_x), -best_v)."""
+    final x.  The objective is the sum of `terms`, functions of the branch
+    lengths that each return a scalar share of -lnL (a pattern chunk, a
+    chunk of partitions); the gradient comes from torch.autograd, summed
+    over the terms, each term's graph freed before the next is built.
+    Returns (exp(best_x), -best_v)."""
     b1, b2, eps = 0.9, 0.999, 1e-8
-    chunks = list(zip(_chunks(tips, pattern_chunk, 1), _chunks(weights, pattern_chunk, 0)))
 
     def negll(x, grad: bool):
         v = x.new_zeros(())
         g = torch.zeros_like(x) if grad else None
-        for t_k, w_k in chunks:
+        for term in terms:
             with torch.enable_grad() if grad else contextlib.nullcontext():
                 xx = x.detach().requires_grad_(grad)
-                vk = -(_site_loglik_tree(children, torch.exp(xx), t_k, **mp) * w_k).sum()
+                vk = term(torch.exp(xx))
                 if grad:
                     g += torch.autograd.grad(vk, xx)[0]
             v = v + vk.detach()
@@ -412,6 +412,18 @@ def _optimize_blens_impl(children, blens0, tips, weights, mp, steps: int,
         best_v = torch.where(better, v, best_v)
         profiling.add_counter("phylo.blen_steps", steps)
         return torch.exp(best_x), -best_v
+
+
+def _optimize_blens_impl(children, blens0, tips, weights, mp, steps: int,
+                         lr: float = 0.05, pattern_chunk: int = 0):
+    """Adam on the log-branch-lengths of one tree (`_adam_log_blens`);
+    with pattern chunking each chunk is one term of the objective."""
+    def term(t_k, w_k, blens):
+        return -(_site_loglik_tree(children, blens, t_k, **mp) * w_k).sum()
+
+    terms = [functools.partial(term, t_k, w_k) for t_k, w_k in
+             zip(_chunks(tips, pattern_chunk, 1), _chunks(weights, pattern_chunk, 0))]
+    return _adam_log_blens(blens0, terms, steps, lr)
 
 
 def _loglik_incremental_impl(cl, cr, lb, rb, lsrc, rsrc, base_buf, base_logscale,

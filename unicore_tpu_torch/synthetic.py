@@ -267,3 +267,45 @@ def nw_scores(rng, B, L1, L2, kind="rand"):
         S[b, l1[b]:, :] = PAD_SCORE
         S[b, :, l2[b]:] = PAD_SCORE
     return S, l1, l2
+
+
+SW_WINDOW_KINDS = ("rand", "gaps", "ties")
+
+
+def sw_windows(rng, B, L, kind="rand"):
+    """(S (B, L, L) int16, l1 (B,) int32, l2 (B,) int32) for
+    ops/sw_bits.sw_forward_bits: hit windows of a square pow2 bucket, as
+    sw_traceback_batch packs them.
+
+    rand   integer scores -60..24 with a planted positive diagonal in most
+           windows (tests/test_sw_bits.py's random windows)
+    gaps   -10 everywhere but two diagonal segments of 50 offset by a
+           gap, which force E/F states and gap-open/extend ties
+           (tests/test_sw_bits.py's gap windows)
+    ties   scores in {-1, 0, 1}: equal cells and equal paths everywhere
+
+    Sizes are ragged down to 1 x 1 (the first window), the middle window
+    fills the bucket, and cells past a window hold PAD_SCORE."""
+    if kind == "ties":
+        S = rng.randint(-1, 2, (B, L, L)).astype(np.int16)
+    elif kind == "gaps":
+        S = np.full((B, L, L), -10, np.int16)
+        for b in range(B):
+            d1, off = rng.randint(3, max(4, L // 4)), rng.randint(2, 8)
+            i = np.arange(d1)
+            S[b, i, i] = 50
+            i = np.arange(d1, L - off)
+            S[b, i, i + off] = 50
+    else:
+        S = rng.randint(-60, 25, (B, L, L)).astype(np.int16)
+        planted = rng.rand(B) < 0.8
+        S[np.ix_(planted, np.arange(L), np.arange(L))] += np.where(
+            np.eye(L, dtype=bool), rng.randint(20, 80, (L, L)), 0).astype(np.int16)
+    l1 = rng.randint(1, L + 1, B).astype(np.int32)
+    l2 = rng.randint(1, L + 1, B).astype(np.int32)
+    l1[0], l2[0] = 1, 1
+    l1[B // 2], l2[B // 2] = L, L
+    for b in range(B):
+        S[b, l1[b]:, :] = PAD_SCORE
+        S[b, :, l2[b]:] = PAD_SCORE
+    return S, l1, l2
