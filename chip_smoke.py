@@ -160,6 +160,26 @@ failure, and no phase is skipped:
        device-busy share, each call's bound as phase 3c's on the padded
        shapes, and an extrapolation (marked so) of a full `tree -p -B
        1000` at this size from phase 4's counts.
+8. ProstT5 (`createdb` with a model directory) at ProtT5-XL's full width:
+   8a. A synthetic checkpoint in the real HF layout, 24 layers at
+       T5Config()'s geometry (1.2 B parameters, float16
+       pytorch_model.bin drawn on the card from a seeded
+       torch.Generator), through `createdb IN OUT MODEL_DIR` on CUDA (a
+       CLI subprocess) on phase 4's 20 proteomes plus one 5,000-residue
+       protein (the windowed path): every 3Di string of its protein's
+       length and of 3Di letters only.  Prints the stage's seconds, the
+       load, residues and padded tokens per second and the peak memory;
+       then, in process, ms per full batch of encoder_forward and
+       cnn_head at buckets 128, 384 and 2,176 (CUDA events), each
+       batch's bound (flops over 989 TFLOP/s dense bf16, weight and
+       residual-stream bytes over 3.35 TB/s; data sheet peaks) and the
+       peak memory, under 40 GiB at 2,176.
+   8b. The same width with 2 of 24 layers (a checkpoint of its own) on
+       the card against the CPU, with TF32 and bf16 reductions requested
+       by the caller: hidden states and logits in float32 within rtol
+       1e-4 and atol 1e-4 max|ref|, and the bf16 engines' 3Di on 8
+       sequences of 30-120 residues under the tie rule of
+       tests/torch_port_helpers.py.
 
 Order of the run: phase 5's CPU run (6b's CPU run beside its easy-core;
 then three sides, each in one process: 7c and 6d; tree -T raxml-ng and
@@ -169,12 +189,13 @@ and 3d, then 6a and 6e (in a thread of their own) beside phase 5's CUDA
 run (6b beside its easy-core; then two sides, each in one process:
 raxml-ng, 7c and 6d; the rest and 7b), all on those two.  Once it has
 ended, phase 3 and the times of phases 3b, 3c and 3d, phase 4, 7a and 7d
-run with nothing beside them, then 6c.  Each phase's start and end on
+run with nothing beside them, then 6c, 8a and 8b.  Each phase's start and end on
 the script's clock is printed as a "[clock]" line.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel mode: launches in phase 4 and 7a, times and bound at (512, 512),
-the main path's most common bucket; 6a prints the cascade's launches);
+the main path's most common bucket; 6a prints the cascade's launches;
+phase 8 adds no kernel: the ProstT5 model is PyTorch ops);
 the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero before
 printing any result.  Nothing here imports JAX or unicore_tpu.
@@ -183,6 +204,7 @@ printing any result.  Nothing here imports JAX or unicore_tpu.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -257,6 +279,20 @@ SEARCH_OPTIONS = "-c 0.8"  # phase 7a/7b: search's default
 PARTITION_OPTIONS = "-m JTT+F+I+G -B 1000 -p {}"  # phase 7c: tree's defaults and a partition file
 PARTITION_ADAM_STEPS = 10  # phase 7d: the timed optimize_blens ...
 PROFILED_STEPS = 3         # ... and the profiled one
+# phase 8: ProstT5 at ProtT5-XL's width (models/prostt5.py T5Config())
+PROSTT5_SEED = 20261017
+PROSTT5_PREFIX = 128      # <AA2fold> after the 128 base pieces
+LONG_PROTEIN = 5000        # 8a: one protein past the 2,048-residue window: three windows at bucket 2,176
+PROSTT5_BUCKETS = (128, 384, 2176)  # 8a: full batches timed in process
+PROFILE_TOP = 8            # prostt5_profile: kernels listed per bucket
+PROSTT5_REPS = 2           # ... timed launches after two warm-ups (about 1 s each at 2,176)
+CROSS_PROSTT5_LAYERS = 2   # 8b: 2 of 24 layers, CUDA against the CPU
+CROSS_PROSTT5_SEQS = 8     # ... of 30-120 residues, one bucket
+PROSTT5_RTOL = 1e-4        # hidden states and logits: rtol, atol a share of max|ref| (tests/test_torch_prostt5.py)
+# 8b's bf16 checks, those of tests/torch_port_helpers.py: the spread
+# limit (assert_bf16_spread) and the tie rule
+BF16_SPREAD, TIE_RTOL_BF16, MIN_AGREE = 0.4, 2.0 ** -6, 0.98
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 _CLOCK = [time.perf_counter()]  # the script's clock; main() restarts it
 
 
@@ -729,12 +765,13 @@ def phase_times(ctx, shapes=SHAPES, reps=50, plain_reps=2):
     return timing
 
 
-def device_busy_ms(fn):
+def device_busy_ms(fn, by_name=False):
     """(device ms, wall ms) of one call of `fn` under torch.profiler: the
     durations of the trace's device events (kernels, copies, fills)
     summed from the raw trace, which skips the profiler's slow
     aggregation (tens of seconds for 10^5 launches); device ms is None
-    when the trace holds no device time."""
+    when the trace holds no device time.  With `by_name`, a third item:
+    {event name: (count, ns)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -745,8 +782,14 @@ def device_busy_ms(fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
-    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events() if e.device_type() == cuda)
-    return (ns / 1e6 if ns > 0 else None), wall_ms
+    names = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            n, ns = names.get(e.name(), (0, 0))
+            names[e.name()] = (n + 1, ns + e.duration_ns())
+    ns = sum(ns for _, ns in names.values())
+    busy = (ns / 1e6 if ns > 0 else None), wall_ms
+    return (*busy, names) if by_name else busy
 
 
 def phase_nw(ctx):
@@ -908,7 +951,8 @@ def phase_phylo(ctx):
         # candidates and steps than the timed calls
         err = {}
         k = PHYLO["cpu_batch"]
-        err["loglik_batch"] = _rel_err(cpu.loglik_batch(cb[:k], bb[:k]), gpu.loglik_batch(cb[:k], bb[:k]))
+        ll_batch = (cpu.loglik_batch(cb[:k], bb[:k]), gpu.loglik_batch(cb[:k], bb[:k]))
+        err["loglik_batch"] = _rel_err(*ll_batch)
         err["site_loglik_batch"] = _site_err(cpu.site_loglik_batch(cb[:16], bb[:16]),
                                              gpu.site_loglik_batch(cb[:16], bb[:16]))
         moves = ts.nni_moves_arrays(c, n)
@@ -932,6 +976,10 @@ def phase_phylo(ctx):
         err[f"loglik_nni_moves at {PHYLO_INC['n']} taxa"] = _rel_err(cpu64.loglik_nni_moves(c64, b64, moves64),
                                                        gpu64.loglik_nni_moves(c64, b64, moves64))
         check(torch.get_float32_matmul_precision() == "high", "the engine did not restore the matmul precision")
+        if err["loglik_batch"] > LL_RTOL:  # each candidate's two lnL, for the record (ROADMAP Queue 3)
+            for i, (a, g) in enumerate(zip(*ll_batch)):
+                log(f"  loglik_batch candidate {i}: CPU {float(a)!r}, CUDA {float(g)!r}, "
+                    f"relative error {abs(float(g) - float(a)) / abs(float(a)):.3g}")
         for name, e in err.items():
             lim = 1.0 if "site" in name else (BLEN_LL_RTOL if "optimize" in name else LL_RTOL)
             check(e <= lim, f"likelihood on CUDA != CPU: {name} error {e:.3g} > {lim}")
@@ -1620,6 +1668,247 @@ def phase_genetree(ctx, work):
     return dict(seconds=times["gene-tree"], per_gene=per_gene)
 
 
+def write_prostt5_checkpoint(path, n_layers, seed):
+    """A synthetic ProstT5 checkpoint in the real HF layout
+    (synthetic.prostt5_hf_tensors) at ProtT5-XL's width (T5Config():
+    d_model 1024, 32 heads x 128, d_ff 16384, relu) with `n_layers`
+    layers, config.json and added_tokens.json.  Weights are drawn on the
+    card from a seeded torch.Generator and saved as float16
+    pytorch_model.bin; returns the seconds it took."""
+    import torch
+
+    from unicore_tpu_torch.models.prostt5 import T5Config
+    from unicore_tpu_torch.synthetic import prostt5_hf_tensors, write_prostt5_json
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(T5Config(), n_layers=n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape, scale, shift):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale + shift).half().cpu()
+
+    sd = prostt5_hf_tensors(cfg, draw)
+    write_prostt5_json(path, cfg, PROSTT5_PREFIX)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    return time.perf_counter() - t0
+
+
+def prostt5_bound(cfg, n_params, B, L):
+    """(bound_ms, ops_ms, bytes_ms, flops) of one forward (encoder and
+    head) of a (B, L) batch: flops of the q/k/v/o and FFN products,
+    q·kᵀ and probs·v and the two convolutions over the data sheet's
+    dense bf16 rate; bytes of the weights (bf16) read once, the residual
+    stream read and written once per layer, tokens and mask read and the
+    codes written, over 3.35 TB/s."""
+    D, F, H, dk = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.d_kv
+    per_layer = 2 * B * L * (4 * D * H * dk + 2 * D * F) + 4 * B * H * L * L * dk
+    head = 2 * B * L * cfg.cnn_kernel * (D * cfg.cnn_hidden + cfg.cnn_hidden * cfg.n_classes)
+    flops = cfg.n_layers * per_layer + head
+    nbytes = 2 * n_params + cfg.n_layers * 2 * B * L * D * 2 + B * L * (8 + 1 + 8)
+    ops_ms, bytes_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms, flops
+
+
+def _random_aa(rng, n):
+    return "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), n))
+
+
+def phase_prostt5(ctx, work):
+    """Phase 8a: `createdb` with a ProstT5 model directory at ProtT5-XL's
+    full width on the card, through the CLI (a subprocess, so its load
+    and its peak memory are its own): a synthetic 24-layer checkpoint
+    (write_prostt5_checkpoint) and phase 4's 20 proteomes plus one
+    5,000-residue protein (the windowed path).  Every 3Di string has its
+    protein's length and only 3Di letters.  Then, in process, full batches
+    at PROSTT5_BUCKETS: ms per batch of encoder_forward, cnn_head and the
+    encoder and head (CUDA events; predict_3di_codes adds an argmax),
+    peak memory, and the bound."""
+    import torch
+
+    from unicore_tpu_torch import synthetic
+    from unicore_tpu_torch.alphabets import TDI_ALPHABET
+    from unicore_tpu_torch.io.seqdb import read_db
+    from unicore_tpu_torch.models import prostt5 as P
+
+    ckpt = os.path.join(work, "prostt5")
+    write_s = write_prostt5_checkpoint(ckpt, P.T5Config().n_layers, PROSTT5_SEED)
+    in_dir = os.path.join(work, "prostt5_in")
+    synthetic.write_proteomes(in_dir, N_SPECIES, PER_SPECIES, seed=7)
+    with open(os.path.join(in_dir, "long.fa"), "w") as f:
+        f.write(">long_protein\n" + _random_aa(np.random.RandomState(8), LONG_PROTEIN) + "\n")
+    want = set()
+    for fn in os.listdir(in_dir):
+        want |= {l.strip() for l in open(os.path.join(in_dir, fn)) if not l.startswith(">") and len(l.strip()) >= 2}
+    out_dir = os.path.join(work, "prostt5_out")
+    db = os.path.join(out_dir, "proteome", "proteome_db")
+    times, counters = run_steps([("createdb_prostt5", ["createdb", in_dir, db, ckpt])], out_dir,
+                                os.path.join(work, "home_main"))
+    c = counters["createdb_prostt5"]
+    aa, ss = read_db(db), read_db(db + "_ss")
+    check(sorted(aa) == sorted(want), f"createdb wrote {len(aa)} sequences, the inputs hold {len(want)}")
+    bad = [i for i, (a, s) in enumerate(zip(aa, ss)) if len(a) != len(s) or not set(s) <= set(TDI_ALPHABET)]
+    check(len(ss) == len(aa) and not bad, f"3Di strings of the wrong length or alphabet: {bad[:5]}")
+    check(LONG_PROTEIN in {len(a) for a in aa}, "the long protein is missing")
+    pred = c["prostt5.predict.seconds"]
+    log(f"[phase 8a] createdb with a 24-layer ProtT5-XL-width checkpoint (written in {write_s:.1f} s) on "
+        f"{len(aa)} sequences ({sum(map(len, aa))} residues, one of {LONG_PROTEIN}) on CUDA: "
+        f"{times['createdb_prostt5']:.2f} s of subprocess wall, stage.createdb.seconds "
+        f"{c['stage.createdb.seconds']:.2f}, load {c['prostt5.load.seconds']:.2f} s, predict {pred:.2f} s in "
+        f"{int(c['prostt5.batches'])} batches; {c['prostt5.residues'] / pred:.0f} residues/s, "
+        f"{c['prostt5.padded_tokens'] / pred:.0f} padded tokens/s ({int(c['prostt5.padded_tokens'])} tokens); "
+        f"peak memory {c['prostt5.peak_bytes'] / 2**30:.2f} GiB ({ctx['smi']})")
+
+    eng = P.ProstT5Engine(ckpt)
+    check(eng.loaded_pretrained and eng.device.type == "cuda", "the engine did not load the checkpoint on the card")
+    n_params = sum(p.numel() for p in eng.model.parameters())
+    rng = np.random.RandomState(9)
+    log("[phase 8a] bucket batch | ms per batch: encoder_forward, cnn_head, both | bound ms "
+        "(ops, bytes) | share of bound | peak GiB")
+    rows = {}
+    for L in PROSTT5_BUCKETS:
+        B = max(8, min(512, eng.batch_tokens // L))
+        toks, mask = P.frame_batch([_random_aa(rng, L - 2) for _ in range(B)], L)
+        tg, mg = torch.from_numpy(toks).to(eng.device), torch.from_numpy(mask).to(eng.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        enc_ms = time_cuda(lambda: P.encoder_forward(eng.model, tg, mg), PROSTT5_REPS)
+        h = P.encoder_forward(eng.model, tg, mg)
+        res = (tg < P.TOK_PREFIX) & mg
+        head_ms = time_cuda(lambda: P.cnn_head(eng.model, h, res), 10)
+        del h
+        full_ms = enc_ms + head_ms
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bound, ops_ms, bytes_ms, _ = prostt5_bound(eng.cfg, n_params, toks.shape[0], L)
+        rows[L] = dict(B=toks.shape[0], enc_ms=enc_ms, head_ms=head_ms, ms=full_ms, bound_ms=bound, peak=peak)
+        log(f"  {L:5d} {toks.shape[0]:4d} | {enc_ms:9.2f} {head_ms:7.3f} {full_ms:9.2f} | {bound:8.2f} "
+            f"({ops_ms:.2f}, {bytes_ms:.3f}) | {bound / full_ms:6.1%} | {peak:.2f}")
+    log(f"  {n_params} parameters; bound = max(flops / {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s dense bf16, "
+        f"bytes / 3.35 TB/s), data sheet peaks ({ctx['smi']})")
+    check(rows[2176]["peak"] < 40, f"peak memory {rows[2176]['peak']:.1f} GiB at bucket 2,176 (budget 40 GiB)")
+    del eng
+    torch.cuda.empty_cache()
+    return rows
+
+
+def prostt5_profile(ctx, work, buckets=(384, 2176)):
+    """Where a full batch's encoder_forward spends the card's time, by
+    kernel (not run by main(); by hand after phase_env):
+
+        python3 -c "import chip_smoke as c, tempfile; c.prostt5_profile(c.phase_env(), tempfile.mkdtemp())"
+
+    Writes phase 8a's 24-layer checkpoint, then for each bucket profiles
+    one encoder_forward of a full batch (device_busy_ms) and prints the
+    wall ms, the device-busy ms, and the PROFILE_TOP kernels by device
+    time (their launches and ms)."""
+    import torch
+
+    from unicore_tpu_torch.models import prostt5 as P
+
+    ckpt = os.path.join(work, "prostt5")
+    write_prostt5_checkpoint(ckpt, P.T5Config().n_layers, PROSTT5_SEED)
+    eng = P.ProstT5Engine(ckpt)
+    rng = np.random.RandomState(9)
+    for L in buckets:
+        B = max(8, min(512, eng.batch_tokens // L))
+        toks, mask = P.frame_batch([_random_aa(rng, L - 2) for _ in range(B)], L)
+        tg, mg = torch.from_numpy(toks).to(eng.device), torch.from_numpy(mask).to(eng.device)
+        P.encoder_forward(eng.model, tg, mg)
+        busy, wall_ms, by_name = device_busy_ms(lambda: P.encoder_forward(eng.model, tg, mg), by_name=True)
+        log(f"[prostt5 profile] bucket {L}, batch {toks.shape[0]}: encoder_forward {wall_ms:.1f} ms of wall, "
+            f"the card busy {busy:.1f} ms, {sum(n for n, _ in by_name.values())} device events ({ctx['smi']})")
+        for name, (n, ns) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:PROFILE_TOP]:
+            log(f"  {ns / 1e6:9.2f} ms {n:6d} x  {name[:110]}")
+
+
+@contextlib.contextmanager
+def low_precision_requested():
+    """Every lower-precision setting a caller could leave on: TF32 in
+    cuBLAS (tf32_requested) and cuDNN, bf16 split-K reductions; the
+    ProstT5 model's guard is what keeps them out.  Restored afterwards."""
+    import torch
+
+    mm = torch.backends.cuda.matmul
+    prev = (torch.backends.cudnn.allow_tf32, mm.allow_bf16_reduced_precision_reduction)
+    torch.backends.cudnn.allow_tf32 = True
+    mm.allow_bf16_reduced_precision_reduction = True
+    try:
+        with tf32_requested():
+            yield
+            check(torch.get_float32_matmul_precision() == "high" and torch.backends.cudnn.allow_tf32
+                  and mm.allow_bf16_reduced_precision_reduction, "the model did not restore the caller's settings")
+    finally:
+        torch.backends.cudnn.allow_tf32, mm.allow_bf16_reduced_precision_reduction = prev
+
+
+def phase_prostt5_cross(ctx, work):
+    """Phase 8b: the model at ProtT5-XL's width with 2 of its 24 layers (a
+    checkpoint of its own, config.json num_layers 2) on the card against
+    the CPU, with every lower-precision setting on: hidden states and
+    logits in float32 within PROSTT5_RTOL, and the bf16 engines' 3Di on
+    CROSS_PROSTT5_SEQS sequences of 30-120 residues (one bucket) under the
+    tie rule, and their logits within BF16_SPREAD of the CPU's bf16
+    rounding (RMS distances: CUDA from CPU bf16, CPU bf16 from CPU
+    float32)."""
+    import torch
+
+    from unicore_tpu_torch.models import prostt5 as P
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(work, "prostt5_cross")
+    write_prostt5_checkpoint(ckpt, CROSS_PROSTT5_LAYERS, PROSTT5_SEED + 1)
+    cfg = P.infer_config(ckpt)
+    rng = np.random.RandomState(10)
+    seqs = [_random_aa(rng, n) for n in rng.randint(30, 121, CROSS_PROSTT5_SEQS)]
+    toks, mask = P.frame_batch(seqs, P._bucket_len(max(map(len, seqs)) + 2))
+    res = (toks < P.TOK_PREFIX) & mask
+    err = {}
+
+    def rel(ref, got, sel):
+        ref, got = np.asarray(ref, np.float64)[sel], np.asarray(got, np.float64)[sel]
+        return float(np.max(np.abs(got - ref) / (PROSTT5_RTOL * (np.abs(ref) + np.abs(ref).max()))))
+
+    with low_precision_requested():
+        state = P.load_params(ckpt, cfg, dtype=torch.float32)
+        cpu, gpu = P.build_model(cfg, state, "cpu"), P.build_model(cfg, state, ctx["dev"])
+        del state
+        tc, mc = torch.from_numpy(toks), torch.from_numpy(mask)
+        tg, mg = tc.to(ctx["dev"]), mc.to(ctx["dev"])
+        err["hidden states"] = rel(P.encoder_forward(cpu, tc, mc), P.encoder_forward(gpu, tg, mg).cpu(), mask)
+        lg32 = P.residue_logits(cpu, tc, mc).numpy()
+        err["logits"] = rel(lg32, P.residue_logits(gpu, tg, mg).cpu(), res)
+        del cpu, gpu
+        e_cpu, e_gpu = P.ProstT5Engine(ckpt, device="cpu"), P.ProstT5Engine(ckpt, device=ctx["dev"])
+        ref, got = e_cpu.predict(seqs), e_gpu.predict(seqs)
+        lg = P.residue_logits(e_cpu.model, tc, mc).numpy()
+        lg_gpu = P.residue_logits(e_gpu.model, tg, mg).cpu().numpy()
+    max_dev = float(np.abs(lg_gpu[res] - lg[res]).max() / np.abs(lg[res]).max())
+    d_gpu, d_f32 = (np.asarray(d, np.float64) for d in (lg_gpu[res] - lg[res], lg[res] - lg32[res]))
+    spread = float(np.sqrt(np.mean(d_gpu ** 2) / np.mean(d_f32 ** 2)))
+    n_diff = n_all = 0
+    widest = 0.0
+    for i, (s, r, g) in enumerate(zip(seqs, ref, got)):
+        check(len(r) == len(g) == len(s), f"3Di length of sequence {i}")
+        diff = [p for p in range(len(s)) if r[p] != g[p]]
+        n_diff, n_all = n_diff + len(diff), n_all + len(s)
+        top = np.sort(lg[i, 1:len(s) + 1][diff], axis=-1)
+        gaps = (top[:, -1] - top[:, -2]) / np.abs(lg[i, 1:len(s) + 1]).max()
+        widest = max([widest, *gaps])
+        check(np.all(gaps < TIE_RTOL_BF16), f"bf16 3Di CUDA != CPU off a tie: sequence {i} at {diff}")
+    check(n_diff <= (1 - MIN_AGREE) * n_all, f"bf16 3Di CUDA vs CPU: {n_diff} of {n_all} letters differ")
+    check(spread <= BF16_SPREAD, f"bf16 logits CUDA vs CPU: {spread:.3g} of the CPU's bf16 rounding "
+          f"(limit {BF16_SPREAD})")
+    for name, e in err.items():
+        check(e <= 1.0, f"ProstT5 on CUDA != CPU: {name} at {e:.3g} of the tolerance")
+    log(f"[phase 8b] ProstT5 at full width, {CROSS_PROSTT5_LAYERS} of 24 layers, CUDA vs CPU with TF32 and bf16 "
+        f"reductions requested, {len(seqs)} sequences at bucket {toks.shape[1]}: float32 errors as a share of "
+        f"rtol {PROSTT5_RTOL} + atol {PROSTT5_RTOL} max|ref|: " + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+        + f"; bf16 logits {spread:.3g} of the CPU's bf16 rounding (limit {BF16_SPREAD}), at most {max_dev:.3g} "
+        f"of max|logit|; 3Di {n_all - n_diff} "
+        f"of {n_all} letters equal (the rest ties, widest gap {widest:.3g} of max|logit|, limit {TIE_RTOL_BF16:.3g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return err
+
+
 def phase6_op_times(ctx, msa_files):
     """The slice's new PyTorch device work timed alone (phase 6c's end):
     one canopy gram at the size of 6a's first chunk (2,048 bags of 2,048
@@ -1809,6 +2098,10 @@ def main() -> int:
             phase_partition(ctx, work, inference)
         with span("phase 6c"):
             phase_genetree(ctx, work)
+        with span("phase 8a"):
+            phase_prostt5(ctx, work)
+        with span("phase 8b"):
+            phase_prostt5_cross(ctx, work)
     finally:
         stop_cli_runs()
         shutil.rmtree(work, ignore_errors=True)

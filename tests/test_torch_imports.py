@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import files_of, port_env  # noqa: F401  (fixture)
+from torch_port_helpers import files_of, port_env, write_prostt5_checkpoint  # noqa: F401  (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -23,7 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(unicore_tpu_torch.__path__, "unic
 for name in names:
     importlib.import_module(name)
 assert {"unicore_tpu_torch.align.cascade", "unicore_tpu_torch.phylo.genebatch",
-        "unicore_tpu_torch.modules.genetree", "unicore_tpu_torch.modules.config"} <= set(names)
+        "unicore_tpu_torch.modules.genetree", "unicore_tpu_torch.modules.config",
+        "unicore_tpu_torch.models.prostt5", "unicore_tpu_torch.seq.lookup"} <= set(names)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n, m in sys.modules.items() if m is not None
@@ -86,6 +87,7 @@ def test_device_switch(monkeypatch):
 
 def test_registry_defaults_and_overrides(port_env, monkeypatch):  # noqa: F811
     from unicore_tpu_torch.align.engine import AlignmentEngine
+    from unicore_tpu_torch.models.prostt5 import ProstT5Engine
     from unicore_tpu_torch.phylo.engine import TreeEngine
     from unicore_tpu_torch.runtime import errors, registry
 
@@ -94,8 +96,13 @@ def test_registry_defaults_and_overrides(port_env, monkeypatch):  # noqa: F811
         eng = registry.get(name)()
         assert isinstance(eng, TreeEngine)
         assert (eng.schedule, eng.device) == (name, torch.device("cpu"))
+    # prostt5 was the typed "not yet ported" exit; it builds the engine
+    write_prostt5_checkpoint(port_env / "ckpt")
+    eng = registry.get("prostt5")(str(port_env / "ckpt"))
+    assert isinstance(eng, ProstT5Engine) and eng.loaded_pretrained and eng.probe()
+    assert eng.device == torch.device("cpu")
     with pytest.raises(errors.UnicoreError) as e:
-        registry.get("prostt5")
+        registry.get("mmseqs")
     assert e.value.err_code == errors.ERR_BINARY_NOT_FOUND
     # an engines.cfg override is resolved before the default
     (port_env / "port_engines.cfg").write_text(
@@ -150,6 +157,11 @@ def test_cli_unported_subcommands_exit_typed(port_env, argv, monkeypatch):  # no
 
 
 def test_cli_unported_createdb_options(port_env, monkeypatch):  # noqa: F811
+    """A ProstT5 model directory and --afdb-lookup were the typed "not yet
+    ported" exit; both run (tests/test_torch_prostt5_cli.py and
+    tests/test_torch_lookup.py hold them against the JAX package).
+    Without a card and without UNICORE_TPU_TORCH_DEVICE=cpu the model is
+    an error, made after the .map and combined_aa.fasta, as in JAX."""
     from unicore_tpu_torch.cli import main
     from unicore_tpu_torch.runtime import errors
 
@@ -157,14 +169,24 @@ def test_cli_unported_createdb_options(port_env, monkeypatch):  # noqa: F811
     ind = port_env / "in.fa"
     ind.write_text(">a\nMKVLAAGIW\n")
     out = port_env / "db" / "proteome_db"
-    assert main(["createdb", str(ind), str(out), str(port_env), "-v", "0"]) == \
-        errors.ERR_MODULE_NOT_IMPLEMENTED
-    assert main(["createdb", str(ind), str(out), "mock", "--afdb-lookup", "x", "-v", "0"]) == \
-        errors.ERR_MODULE_NOT_IMPLEMENTED
-    assert not out.parent.exists()  # nothing written before the error
+    write_prostt5_checkpoint(port_env / "ckpt")
+    assert main(["createdb", str(ind), str(out), str(port_env / "ckpt"), "-v", "0"]) == 0
+    assert len((port_env / "db" / "proteome_db_ss").read_text().strip("\x00\n")) == 9
+    (port_env / "tables" / "md5").mkdir(parents=True)
+    for i in range(256):
+        (port_env / "tables" / "md5" / f"{i:02x}.tsv").write_text("")
+    assert main(["createdb", str(ind), str(out), "mock", "--afdb-lookup", str(port_env / "tables"),
+                 "--overwrite", "-v", "0"]) == 0
+    assert (port_env / "db" / "converted_aa.fasta").exists()
+    if not torch.cuda.is_available():
+        monkeypatch.delenv("UNICORE_TPU_TORCH_DEVICE")
+        out2 = port_env / "db2" / "proteome_db"
+        assert main(["createdb", str(ind), str(out2), str(port_env / "ckpt"), "-v", "0"]) == errors.ERR_GENERAL
+        assert sorted(os.listdir(out2.parent)) == ["combined_aa.fasta", "createdb.chk", "proteome_db.map"]
+        monkeypatch.setenv("UNICORE_TPU_TORCH_DEVICE", "cpu")
     # UNICORE_TPU_TORCH_COUNTERS: the run's counters and kernel launches as JSON
     monkeypatch.setenv("UNICORE_TPU_TORCH_COUNTERS", str(port_env / "counters.json"))
-    assert main(["createdb", str(ind), str(out), "mock", "-v", "0"]) == 0
+    assert main(["createdb", str(ind), str(out), "mock", "--overwrite", "-v", "0"]) == 0
     counters = json.loads((port_env / "counters.json").read_text())
     assert counters["kernel.sw.gapped.launches"] == 0
     assert counters["stage.createdb.seconds"] > 0

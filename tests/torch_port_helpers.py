@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from unicore_tpu_torch.synthetic import PROSTT5_VOCAB_ROWS
+
 
 @pytest.fixture
 def port_env(tmp_path, monkeypatch):
@@ -257,3 +259,148 @@ def assert_same_gene_tree(msa, ref, got, supported):
         return True
     assert tll > jll, (jll, tll)
     return False
+
+
+# ProstT5 (tests/test_torch_prostt5*.py, tests/test_torch_lookup.py)
+PROSTT5_DIMS = dict(d_model=64, d_kv=16, n_heads=4, d_ff=128, n_layers=2, cnn_hidden=8)
+PREFIX_ID = 131      # deliberately not the default guess: read from the files
+# The tie rule of tests/test_prostt5_parity.py: a 3Di letter may differ
+# only where the reference's top-two logit gap is below a tolerance, a
+# share of the reference's largest |logit|.  float32: the same products
+# summed in another order, ~1e-6 relative; the tolerance is 10x that.
+# bf16: both sides take the same casts and differ in the order of their
+# sums only.  Measured on the CPU on checkpoints of this file (seeds
+# 0-5, 72 sequences of 2-250 residues, logits of scale ~3): through the
+# engines (each batching its own way, the reference logits of each
+# sequence framed alone) 0.8 % of the letters differ, at top-two gaps up
+# to 2^-7.3 of max|logit|, so the bf16 tie tolerance is 2^-6.  The casts
+# themselves are held by assert_bf16_spread: on one batch, the RMS
+# distance between the two bf16 models' logits is 0.08-0.28 of the
+# reference's own bf16 rounding (its RMS distance from the float32 model
+# on the same weights) at four geometries up to ProtT5-XL's width, and
+# 0.52-0.78 with a cast-order fault planted in the port (scores rounded
+# to bf16 before the bias and the softmax, or a bf16 softmax;
+# test_bf16_logits_equal_jax).  The limit, BF16_SPREAD, is 0.4.  At
+# least MIN_AGREE of the letters must agree.
+TIE_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+BF16_SPREAD = 0.4
+MIN_AGREE = 0.98
+
+
+def assert_bf16_spread(ref, got, f32):
+    """Logits of a bf16 model `got` against a reference bf16 model's
+    `ref`, both of the same casts, and the float32 model's `f32` on the
+    same weights and inputs: RMS(got - ref) at most BF16_SPREAD of
+    RMS(ref - f32).  Returns that share."""
+    ref, got, f32 = (np.asarray(a, np.float64) for a in (ref, got, f32))
+    share = np.sqrt(np.mean((got - ref) ** 2) / np.mean((ref - f32) ** 2))
+    assert share <= BF16_SPREAD, (share, BF16_SPREAD)
+    return share
+
+
+_GGUF_BLK = {"layer.0.layer_norm.weight": "attn_norm.weight",
+             "layer.0.SelfAttention.q.weight": "attn_q.weight",
+             "layer.0.SelfAttention.k.weight": "attn_k.weight",
+             "layer.0.SelfAttention.v.weight": "attn_v.weight",
+             "layer.0.SelfAttention.o.weight": "attn_o.weight",
+             "layer.0.SelfAttention.relative_attention_bias.weight": "attn_rel_b.weight",
+             "layer.1.layer_norm.weight": "ffn_norm.weight",
+             "layer.1.DenseReluDense.wi.weight": "ffn_up.weight",
+             "layer.1.DenseReluDense.wi_0.weight": "ffn_gate.weight",
+             "layer.1.DenseReluDense.wi_1.weight": "ffn_up.weight",
+             "layer.1.DenseReluDense.wo.weight": "ffn_down.weight"}
+
+
+def gguf_name(hf: str) -> str:
+    """llama.cpp's T5-encoder name of an HF tensor (classifier.* keep theirs)."""
+    if hf == "shared.weight":
+        return "token_embd.weight"
+    if hf == "encoder.final_layer_norm.weight":
+        return "enc.output_norm.weight"
+    if hf.startswith("encoder.block."):
+        i, _, tail = hf[len("encoder.block."):].partition(".")
+        return f"enc.blk.{i}.{_GGUF_BLK[tail]}"
+    return hf
+
+
+def gguf_tokens(prefix_id=PREFIX_ID):
+    from unicore_tpu_torch.models.tokenizer import PROTT5_AA_ORDER
+
+    toks = ["<pad>", "</s>", "<unk>"] + ["▁" + c for c in PROTT5_AA_ORDER]
+    toks += [f"<extra_{i}>" for i in range(len(toks), prefix_id)]
+    return toks + ["<AA2fold>", "<fold2AA>"]
+
+
+def write_prostt5_checkpoint(path, fmt="bin", dims=PROSTT5_DIMS, seed=0, gated=False,
+                             classifier=True, rows=PROSTT5_VOCAB_ROWS):
+    """A synthetic checkpoint directory (synthetic.prostt5_hf_tensors,
+    drawn from numpy seed `seed`) of `dims`, with its HF config.json: the
+    tensors as `model.safetensors` or `pytorch_model.bin` with
+    `added_tokens.json` (<AA2fold> at PREFIX_ID), or a GGUF in f16 or q8_0
+    (`gguf`, `gguf_q8`, the tokenizer in its metadata).  Returns the
+    tensors."""
+    from unicore_tpu_torch.models.prostt5 import T5Config
+    from unicore_tpu_torch.synthetic import prostt5_hf_tensors, write_prostt5_json
+
+    rng = np.random.RandomState(seed)
+    cfg = T5Config(**dims, ff="gated-gelu" if gated else "relu")
+    t = prostt5_hf_tensors(cfg, lambda shape, scale, shift: (rng.randn(*shape) * scale + shift).astype(np.float32),
+                           rows, classifier)
+    write_prostt5_json(path, cfg, PREFIX_ID if fmt in ("safetensors", "bin") else None, rows)
+    if fmt == "safetensors":
+        from safetensors.numpy import save_file
+        save_file(t, os.path.join(path, "model.safetensors"))
+    elif fmt == "bin":
+        torch.save({k: torch.from_numpy(v) for k, v in t.items()}, os.path.join(path, "pytorch_model.bin"))
+    else:
+        from unicore_tpu_torch.models.gguf import write_gguf
+        g = {gguf_name(k): v for k, v in t.items()}
+        quant = {k: "q8_0" for k, v in g.items() if v.ndim == 2 and v.size % 32 == 0} if fmt == "gguf_q8" else {}
+        write_gguf(os.path.join(path, "prostt5.gguf"),
+                   {"general.alignment": 32, "tokenizer.ggml.tokens": gguf_tokens()}, g, quant)
+    return t
+
+
+def stitched_logits(seq, unit_logits, W=2048, V=256):
+    """(len(seq), C) logits of `seq` as ProstT5Engine.predict reads its
+    letters: one unit up to W residues, else W-wide windows overlapping by
+    V with ownership handed over at the overlap midpoints.
+    `unit_logits(piece)` gives the (len(piece), C) logits of one unit."""
+    if len(seq) <= W:
+        return unit_logits(seq)
+    starts = list(range(0, len(seq) - W + 1, W - V))
+    if starts[-1] + W < len(seq):
+        starts.append(len(seq) - W)
+    out, own_from = None, 0
+    for st in starts:
+        lg = unit_logits(seq[st:st + W])
+        out = np.zeros((len(seq), lg.shape[1]), lg.dtype) if out is None else out
+        own_to = st + len(lg)
+        lo = max(own_from, st)
+        out[lo:own_to] = lg[lo - st:]
+        own_from = own_to - V // 2
+    return out
+
+
+def assert_same_3di(seqs, ref, got, ref_logits, dtype):
+    """`got` 3Di strings against `ref` under the tie rule: equal lengths,
+    3Di letters only, every differing letter where ref_logits(i) (the
+    reference's (len, C) logits of sequence i) has a top-two gap below
+    TIE_RTOL[dtype] of its largest |logit|, and at least MIN_AGREE of the
+    letters equal.  Returns the number of differing letters."""
+    from unicore_tpu_torch.alphabets import TDI_ALPHABET
+
+    n_diff = n_all = 0
+    for i, (s, r, g) in enumerate(zip(seqs, ref, got)):
+        assert len(r) == len(g) == len(s), (i, len(s), len(r), len(g))
+        assert set(g) <= set(TDI_ALPHABET), (i, g)
+        diff = [p for p in range(len(s)) if r[p] != g[p]]
+        n_diff, n_all = n_diff + len(diff), n_all + len(s)
+        if diff:
+            lg = np.asarray(ref_logits(i), np.float64)
+            top = np.sort(lg[diff], axis=-1)
+            gaps = top[:, -1] - top[:, -2]
+            tol = TIE_RTOL[dtype] * np.abs(lg).max()
+            assert np.all(gaps < tol), (i, diff, gaps, tol)
+    assert n_diff <= (1 - MIN_AGREE) * n_all, (n_diff, n_all)
+    return n_diff

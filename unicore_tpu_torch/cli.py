@@ -4,7 +4,8 @@ subcommands.
 `build_parser` and `resolve` are copies of unicore_tpu's (the same
 subcommands, flags, defaults and pre-wired paths), so a command line
 means the same to both packages.  `run` dispatches all ten subcommands:
-`createdb`, `cluster` (the cascade above 5,000 sequences), `search`,
+`createdb` (a ProstT5 model directory or `mock`, with the AFDB or custom
+3Di lookups), `cluster` (the cascade above 5,000 sequences), `search`,
 `profile`, `tree` (MSA, supermatrix and tree inference with the iqtree,
 fasttree and raxml-ng schedules, partitioned with -p/-q), `gene-tree`
 (batched per-gene inference), `config`, `easy-core`, `easy-search` and

@@ -1,7 +1,7 @@
 """Hand a JAX engine's state over to the port.
 
-The slice has no model weights; what an alignment engine carries is its
-two substitution matrices and its AlignParams.  `from_jax_arrays` takes
+What an alignment engine carries is its two substitution matrices and
+its AlignParams.  `from_jax_arrays` takes
 them as the JAX engine holds them (numpy arrays and the dataclass, or a
 dict of its fields) and returns the keyword arguments of the port's
 AlignmentEngine, so both engines score with the same tables:
@@ -10,6 +10,14 @@ AlignmentEngine, so both engines score with the same tables:
                     device="cpu")
 
 Fields the port has no use for (the JAX engine's `backend`) are dropped.
+
+A ProstT5 engine carries its parameter tree.  `prostt5_from_jax` takes
+it as JAX holds it (`embed`, `rel_bias`, `final_ln`, `layers[i]` with
+`q/k/v/o`, `wi` or `wi0/wi1`, `wo`, `ln1/ln2`, and `cnn.w1/b1/w2/b2`;
+numpy or JAX arrays) and returns the port's state, so both models
+compute with the same weights:
+
+    build_model(cfg, prostt5_from_jax(jax_eng.params), "cpu")
 """
 
 from __future__ import annotations
@@ -30,3 +38,21 @@ def from_jax_arrays(saa, s3d, params: Union[Mapping[str, Any], Any]) -> Dict[str
         "s3d": np.asarray(s3d, dtype=np.float32),
         "params": AlignParams(**{k: v for k, v in fields.items() if k in names}),
     }
+
+
+def prostt5_from_jax(params: Mapping[str, Any]):
+    """JAX's ProstT5 parameter tree as the port's state (models/prostt5.py
+    names and layout), bfloat16 where the tree's leaves are bfloat16,
+    else float32 (bf16 leaves widen to float32 exactly on the way)."""
+    import torch
+
+    from unicore_tpu_torch.models.prostt5 import state_from_tree
+
+    def leaf(a):
+        return np.asarray(np.asarray(a), dtype=np.float32)
+
+    dtype = torch.bfloat16 if np.asarray(params["embed"]).dtype.name == "bfloat16" else torch.float32
+    tree = {k: leaf(params[k]) for k in ("embed", "rel_bias", "final_ln")}
+    tree["layers"] = [{k: leaf(v) for k, v in layer.items()} for layer in params["layers"]]
+    tree["cnn"] = {k: leaf(v) for k, v in params["cnn"].items()}
+    return state_from_tree(tree, dtype)

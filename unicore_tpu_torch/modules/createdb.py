@@ -8,14 +8,14 @@ Behavioral contract of modules/createdb.rs:20-217:
     (:104-106); write "{out}.map" (:86-108) and combined_aa.fasta
   * optional AFDB/custom lookup pre-resolves 3Di for known sequences
     (:128-135); the remainder goes through the model
-  * translate AA -> 3Di with the deterministic mock backend and write the
-    {db}, {db}_ss, {db}_h triplet
+  * translate AA -> 3Di with ProstT5 (models/prostt5.py on the device
+    runtime/device.py resolves, or the deterministic mock backend) and
+    write the {db}, {db}_ss, {db}_h triplet
   * checkpoint createdb.chk, refusing to redo work without --overwrite
     (:55-65)
 
-Counterpart of unicore_tpu/modules/createdb.py.  Not yet ported: a real
-ProstT5 model directory and the AFDB / custom lookups (seq/lookup); they
-end in a typed "not yet ported" error before anything is written.
+Counterpart of unicore_tpu/modules/createdb.py, in its order: the model
+is made after the .map and combined_aa.fasta are written.
 """
 
 from __future__ import annotations
@@ -46,14 +46,21 @@ def _gather_fasta_files(input_path: str) -> List[str]:
 
 
 def get_predictor(model: str):
-    """Resolve the 3Di predictor backend from the model argument: only
-    the mock backend is ported (UNICORE_TPU_MOCK_PROSTT5=1 selects it
-    for any model argument, as in the JAX package)."""
+    """Resolve the 3Di predictor backend from the model argument.
+
+    `mock` stays a CLI-level backend choice (UNICORE_TPU_MOCK_PROSTT5=1
+    selects it for any model argument, as in the JAX package); otherwise
+    the engine comes from the registry so engines.cfg can override it."""
     if model == "mock" or os.environ.get("UNICORE_TPU_MOCK_PROSTT5") == "1":
         from unicore_tpu_torch.models.mock import MockProstT5
         return MockProstT5()
-    err.error(err.ERR_MODULE_NOT_IMPLEMENTED,
-              f"ProstT5 model '{model}' is not yet ported to unicore_tpu_torch; use 'mock'")
+    if model not in ("random",) and os.path.isdir(model):
+        # createdb.rs:148-155 analog: fetch weights into the model dir
+        # when absent (gated; no-op on zero-egress builds)
+        from unicore_tpu_torch.models.fetch import maybe_download_prostt5
+        maybe_download_prostt5(model)
+    from unicore_tpu_torch.runtime import registry
+    return registry.get("prostt5")(model)
 
 
 def run(args) -> None:
@@ -62,11 +69,6 @@ def run(args) -> None:
     model = args.createdb_model
     overwrite = bool(args.createdb_overwrite)
     max_len = args.createdb_max_len
-
-    if args.createdb_afdb_lookup or args.createdb_custom_lookup:
-        err.error(err.ERR_MODULE_NOT_IMPLEMENTED,
-                  "--afdb-lookup / --custom-lookup are not yet ported to unicore_tpu_torch")
-    predictor = get_predictor(model)
 
     parent = os.path.dirname(output) or "."
     os.makedirs(parent, exist_ok=True)
@@ -98,11 +100,34 @@ def run(args) -> None:
             map_rows.append((name, species, key))
     write_map(output + ".map", map_rows)
 
-    fasta.write_fasta(os.path.join(parent, "combined_aa.fasta"), fasta_data)
+    combined_aa = os.path.join(parent, "combined_aa.fasta")
+
+    # AFDB / custom lookup split: known sequences get precomputed 3Di,
+    # the rest ("combined") go through the model (createdb.rs:128-135).
+    pre_names: List[str] = []
+    pre_aa: List[str] = []
+    pre_ss: List[str] = []
+    lookup = args.createdb_afdb_lookup or args.createdb_custom_lookup
+    if lookup:
+        from unicore_tpu_torch.seq.lookup import split_by_lookup
+        resolved, remaining = split_by_lookup(
+            fasta_data, lookup, custom=bool(args.createdb_custom_lookup),
+            out_dir=parent,
+        )
+        for name, (aa_seq, ss_seq) in resolved.items():
+            pre_names.append(name)
+            pre_aa.append(aa_seq)
+            pre_ss.append(ss_seq)
+        fasta.write_fasta(combined_aa, remaining)
+        todo = remaining
+    else:
+        fasta.write_fasta(combined_aa, fasta_data)
+        todo = fasta_data
 
     # Translate AA -> 3Di
-    names = list(fasta_data.keys())
-    seqs = [fasta_data[n] for n in names]
+    predictor = get_predictor(model)
+    names = list(todo.keys())
+    seqs = [todo[n] for n in names]
     msg.print_message(f"Predicting 3Di for {len(seqs)} sequences...", 3)
     ss = predictor.predict(seqs) if seqs else []
     msg.println_message(" Done", 3)
@@ -111,7 +136,12 @@ def run(args) -> None:
         if len(s) != len(q):
             err.error(err.ERR_GENERAL, "3Di prediction length mismatch")
 
-    db = SeqDB(names=names, aa_seqs=seqs, ss_seqs=ss, sources=None)
+    db = SeqDB(
+        names=pre_names + names,
+        aa_seqs=pre_aa + seqs,
+        ss_seqs=pre_ss + ss,
+        sources=None,
+    )
     db.write(output, source_files=[os.path.basename(f) for f in fasta_files])
 
     chkpnt.write_checkpoint(chk, "1")

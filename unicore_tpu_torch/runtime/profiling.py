@@ -24,6 +24,10 @@ def add_counter(name: str, value: float) -> None:
     _COUNTERS[name] = _COUNTERS.get(name, 0.0) + value
 
 
+def set_counter(name: str, value: float) -> None:
+    _COUNTERS[name] = value
+
+
 def get_counters() -> Dict[str, float]:
     return dict(_COUNTERS)
 

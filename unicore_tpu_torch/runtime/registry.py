@@ -13,8 +13,9 @@ Valid names mirror envs/variables.rs:79-81 plus TPU-native extras.
 
 Counterpart of unicore_tpu/runtime/registry.py.  `foldseek` (the port's
 AlignmentEngine), `foldmason`, `mafft` and `mafft-linsi` (its
-ProgressiveMSA), and `iqtree`, `fasttree` and `raxml-ng` (its TreeEngine
-schedules) have default factories here; every other valid name resolves
+ProgressiveMSA), `iqtree`, `fasttree` and `raxml-ng` (its TreeEngine
+schedules) and `prostt5` (its ProstT5Engine) have default factories
+here; every other valid name (`mmseqs`, never invoked) resolves
 to a typed ERR_BINARY_NOT_FOUND "not yet ported" unless an override
 names a factory.  Each engine runs on the device runtime/device.py
 resolves.  Overrides are read from the port's own
@@ -39,7 +40,7 @@ VALID_ENGINES = (
     "fasttree",      # -> unicore_tpu_torch.phylo approximate-ML schedule
     "raxml-ng",      # -> unicore_tpu_torch.phylo ML engine, raxml-style schedule
     "mmseqs",        # registered but never invoked (parity: variables.rs:80)
-    "prostt5",       # not yet ported (the AA->3Di translation model)
+    "prostt5",       # -> unicore_tpu_torch.models.prostt5, the AA->3Di translation model
 )
 
 _FACTORIES: Dict[str, Callable[[], object]] = {}
@@ -164,6 +165,10 @@ def _register_defaults() -> None:
         from unicore_tpu_torch.phylo.engine import TreeEngine
         return TreeEngine(schedule="raxml-ng")
 
+    def _prostt5(model_dir=None):
+        from unicore_tpu_torch.models.prostt5 import ProstT5Engine
+        return ProstT5Engine(model_dir)
+
     defaults = {
         "foldseek": _align_engine,
         "foldmason": _msa_engine_foldmason,
@@ -172,6 +177,7 @@ def _register_defaults() -> None:
         "iqtree": _tree_iqtree,
         "fasttree": _tree_fasttree,
         "raxml-ng": _tree_raxml,
+        "prostt5": _prostt5,
     }
     for k, v in defaults.items():
         _FACTORIES.setdefault(k, v)

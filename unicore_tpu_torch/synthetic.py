@@ -13,6 +13,8 @@ species tree of a seed (the reference of an inferred tree).
 inputs).  `sw_edge_pairs` makes
 Smith-Waterman inputs at the edges of the kernel's mapping, `nw_scores`
 score batches for the NW forward (ops/nw_device.py).
+`prostt5_hf_tensors` and `write_prostt5_json` make a ProstT5 checkpoint
+in the real HF layout from random weights (models/prostt5.py loads it).
 """
 
 from __future__ import annotations
@@ -309,3 +311,63 @@ def sw_windows(rng, B, L, kind="rand"):
         S[b, l1[b]:, :] = PAD_SCORE
         S[b, :, l2[b]:] = PAD_SCORE
     return S, l1, l2
+
+
+PROSTT5_VOCAB_ROWS = 150  # the published ProstT5 vocab_size
+
+
+def prostt5_hf_tensors(cfg, draw, rows=PROSTT5_VOCAB_ROWS, classifier=True):
+    """{HF name: tensor} of a synthetic ProstT5 checkpoint in the real
+    layout at the geometry of `cfg` (models/prostt5.T5Config):
+    original-T5 names (`wi`, or `wi_0`/`wi_1` where cfg.ff is
+    "gated-gelu"), a `rows`-row shared.weight and, with `classifier`, the
+    foldseek head's conv2d tensors (out, in, K, 1).  `draw(shape, scale,
+    shift)` returns one tensor of `shape` drawn from N(shift, scale^2):
+    products and convolutions are fan-in scaled, RMSNorm weights
+    1 + 0.1 N(0, 1)."""
+    from unicore_tpu_torch.models.prostt5 import _HF_LAYER
+
+    D, F, inner = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.d_kv
+    H, K = cfg.cnn_hidden, cfg.cnn_kernel
+
+    def w(*shape):
+        return draw(shape, math.prod(shape[1:]) ** -0.5, 0.0)
+
+    def norm():
+        return draw((D,), 0.1, 1.0)
+
+    t = {"shared.weight": draw((rows, D), 1.0, 0.0),
+         "encoder.final_layer_norm.weight": norm(),
+         "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight":
+             draw((cfg.rel_buckets, cfg.n_heads), 0.5, 0.0)}
+    ffn = ("wi0", "wi1") if cfg.ff == "gated-gelu" else ("wi",)
+    shapes = {"q": (inner, D), "k": (inner, D), "v": (inner, D), "o": (D, inner), "wo": (D, F)}
+    shapes.update({name: (F, D) for name in ffn})
+    for i in range(cfg.n_layers):
+        pre = f"encoder.block.{i}.layer."
+        for name in ("ln1", "q", "k", "v", "o", "ln2", "wo") + ffn:
+            t[pre + _HF_LAYER[name] + ".weight"] = norm() if name.startswith("ln") else w(*shapes[name])
+    if classifier:
+        t["classifier.0.weight"] = w(H, D, K, 1)
+        t["classifier.0.bias"] = draw((H,), 0.1, 0.0)
+        t["classifier.3.weight"] = w(cfg.n_classes, H, K, 1)
+        t["classifier.3.bias"] = draw((cfg.n_classes,), 0.1, 0.0)
+    return t
+
+
+def write_prostt5_json(path, cfg, prefix_id=None, rows=PROSTT5_VOCAB_ROWS):
+    """The HF config.json of `cfg`'s geometry in directory `path` and,
+    given `prefix_id`, added_tokens.json with <AA2fold> at that id and
+    <fold2AA> after it."""
+    import json
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"d_model": cfg.d_model, "d_kv": cfg.d_kv, "num_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+                   "num_layers": cfg.n_layers, "relative_attention_num_buckets": cfg.rel_buckets,
+                   "relative_attention_max_distance": cfg.rel_max_dist,
+                   "feed_forward_proj": "gated-gelu" if cfg.ff == "gated-gelu" else "relu",
+                   "vocab_size": rows}, f)
+    if prefix_id is not None:
+        with open(os.path.join(path, "added_tokens.json"), "w") as f:
+            json.dump({"<AA2fold>": prefix_id, "<fold2AA>": prefix_id + 1}, f)
