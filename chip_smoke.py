@@ -181,6 +181,42 @@ failure, and no phase is skipped:
        sequences of 30-120 residues under the tie rule of
        tests/torch_port_helpers.py.
 
+9. The multi-device paths (parallel/mesh.py), on a logical mesh of
+   LOGICAL_SHARDS shards of the card, each shard in turn on it (and over
+   every card where there are several): what a shard computes is what a
+   card of a real mesh would, so this shows correctness, not multi-card
+   speed.
+   9a. `sw_forward_sharded` bit-exact against one `sw_forward_cuda` call
+       and the plain version: at (512, 512) gapped with gap_window 64 and
+       bias on, gapped with gap_window 0 and no bias, ungapped with bias,
+       and 500 pairs padded as the engine pads (to 4 x 16); then its ms
+       at (512, 512) (the engine's setting) beside the single call's and
+       the plain version's, and its bound (the shards' bounds summed over
+       the distinct devices).
+   9b. `sw_forward_banded_sharded` (32 pairs at bucket 1,024, W 256,
+       gapped and ungapped) and `nw_forward_bits_sharded` (64 pairs at
+       bucket 512) bit-identical to one call each.
+   9c. Under TF32 settings, `loglik_batch` and `site_loglik_batch` with
+       mesh= on phase 3c's 64 candidates and `_loglik_multi_sharded` on 3
+       genes at 3c's width x 8 candidates against one device, within rtol
+       2e-5 and atol 1e-3 (tests/test_sharded_backhalf.py's tolerance).
+   9d. With `local_mesh` patched to the logical mesh, against the same
+       calls unpatched: `AlignmentEngine.align_pairs` on phase 4's first
+       SHARD_SPECIES x 120 sequences (their prefilter pairs, the E-value
+       fit made anew on each side) with equal hits and fit,
+       `nw_align_batch` on 40 score matrices with equal paths, and
+       `ProstT5Engine.predict` (8b's checkpoint, bf16) with the 3Di under
+       the tie rule.  The sharded route's launches are counted from 0
+       over the patched calls; both modes must have launched.
+   9e. Two ranks of `python -m unicore_tpu_torch.parallel.dist_check`
+       through `initialize_distributed` (gloo, each rank's kernel on the
+       card, collectives on host copies), started before 9d and joined
+       after it: each scores only its block of an SW batch, all-reduces
+       the hit count, all-gathers the results and checks both against
+       the whole batch.
+   9f. The native featurizer on phase 4's 2,400 sequences, bit-identical
+       to its plain version; both timed.
+
 Order of the run: phase 5's CPU run (6b's CPU run beside its easy-core;
 then three sides, each in one process: 7c and 6d; tree -T raxml-ng and
 tree -T fasttree; the two other aligners and 7b) starts first, on every
@@ -189,13 +225,14 @@ and 3d, then 6a and 6e (in a thread of their own) beside phase 5's CUDA
 run (6b beside its easy-core; then two sides, each in one process:
 raxml-ng, 7c and 6d; the rest and 7b), all on those two.  Once it has
 ended, phase 3 and the times of phases 3b, 3c and 3d, phase 4, 7a and 7d
-run with nothing beside them, then 6c, 8a and 8b.  Each phase's start and end on
+run with nothing beside them, then 6c, 8a, 8b and 9.  Each phase's start and end on
 the script's clock is printed as a "[clock]" line.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel mode: launches in phase 4 and 7a, times and bound at (512, 512),
 the main path's most common bucket; 6a prints the cascade's launches;
-phase 8 adds no kernel: the ProstT5 model is PyTorch ops);
+phase 8 adds no kernel: the ProstT5 model is PyTorch ops; a row for the
+sharded route: 9d's launches, 9a's times and bound);
 the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero before
 printing any result.  Nothing here imports JAX or unicore_tpu.
@@ -293,6 +330,17 @@ PROSTT5_RTOL = 1e-4        # hidden states and logits: rtol, atol a share of max
 # limit (assert_bf16_spread) and the tie rule
 BF16_SPREAD, TIE_RTOL_BF16, MIN_AGREE = 0.4, 2.0 ** -6, 0.98
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+# phase 9: the multi-device paths on a logical mesh of shards of one card
+LOGICAL_SHARDS = 4
+RAGGED_B = 500             # 9a: a batch the engine pads to 512 (4 shards x 16 pairs)
+SHARDED_REPS = 20          # 9a: timed launches of sw_forward_sharded and of the single call
+BANDED_9B = (32, 1024, 256)  # 9b: banded (B, L, W): pairs past long_threshold
+NW_9B = (64, 512)          # 9b: NW (B, bucket): a full merge batch
+GENES_9C, CANDIDATES_9C = 3, 8  # 9c: genes (4 shards: one pad gene) and candidates each, at 3c's width
+SHARD_LL_RTOL, SHARD_LL_ATOL = 2e-5, 1e-3  # 9c: sharded vs single (tests/test_sharded_backhalf.py)
+SHARD_SPECIES = 2          # 9d: phase 4's first 2 x 120 sequences through align_pairs
+NW_MATRICES_9D = 40        # 9d: score matrices through nw_align_batch
+DIST_RANKS = 2             # 9e
 _CLOCK = [time.perf_counter()]  # the script's clock; main() restarts it
 
 
@@ -655,6 +703,16 @@ def read_files(root, skip=(".counters.json", ".times.json")):
 # phases
 # ---------------------------------------------------------------------------
 
+def host_cpu():
+    """The host CPU's model, core count and the vector extensions that
+    select the CPU kernels (phase 3c's and 5's CPU sides run on them)."""
+    info = open("/proc/cpuinfo").read()
+    model = next((l.split(":", 1)[1].strip() for l in info.splitlines() if l.startswith("model name")), "unknown")
+    flags = set(next((l.split(":", 1)[1].split() for l in info.splitlines() if l.startswith("flags")), []))
+    ext = [f for f in ("avx2", "avx512f", "avx512_bf16", "amx_bf16", "amx_tile") if f in flags]
+    return f"{model}, {os.cpu_count()} cores, {' '.join(ext) or 'no avx2'}"
+
+
 def phase_env():
     """Phase 1: the card, the versions, the kernel's build; returns the
     context the other phases share."""
@@ -673,6 +731,7 @@ def phase_env():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {props.name}, "
         f"{props.multi_processor_count} SMs, max SM clock {clock} MHz, "
         f"peak scalar rate {peak_ops / 1e12:.2f} Tops/s")
+    log(f"host: {host_cpu()}; torch CPU kernels {torch.backends.cpu.get_cpu_capability()}")
     build_s = sw_cuda.build()
     log(f"[phase 1] kernel built from {os.path.relpath(sw_cuda.SOURCE, ROOT)} in {build_s:.1f} s")
     dev = torch.device("cuda")
@@ -905,6 +964,20 @@ def _nj_start(msa, floor):
     return c, np.maximum(b, floor)
 
 
+def float64_loglik(eng, cb, bb):
+    """lnL of each candidate through the engine's own batched functions in
+    float64 on the CPU: the arbiter where its float32 sides disagree."""
+    import torch
+
+    from unicore_tpu_torch.phylo import likelihood as tl
+
+    mp = {k: v.cpu().double() for k, v in eng._mp.items()}
+    with torch.no_grad():
+        sites = tl._site_loglik_batch_core(torch.as_tensor(cb), torch.as_tensor(bb, dtype=torch.float64),
+                                           eng.tips.cpu().double(), **mp)
+    return (sites * eng.w.cpu().double()).sum(-1).tolist()
+
+
 @contextlib.contextmanager
 def tf32_requested():
     """`torch.set_float32_matmul_precision("high")` inside the block, so the
@@ -976,10 +1049,11 @@ def phase_phylo(ctx):
         err[f"loglik_nni_moves at {PHYLO_INC['n']} taxa"] = _rel_err(cpu64.loglik_nni_moves(c64, b64, moves64),
                                                        gpu64.loglik_nni_moves(c64, b64, moves64))
         check(torch.get_float32_matmul_precision() == "high", "the engine did not restore the matmul precision")
-        if err["loglik_batch"] > LL_RTOL:  # each candidate's two lnL, for the record (ROADMAP Queue 3)
+        if err["loglik_batch"] > LL_RTOL:  # each candidate's lnL, for the record (ROADMAP Queue 3)
+            f64 = float64_loglik(cpu, cb[:k], bb[:k])
             for i, (a, g) in enumerate(zip(*ll_batch)):
                 log(f"  loglik_batch candidate {i}: CPU {float(a)!r}, CUDA {float(g)!r}, "
-                    f"relative error {abs(float(g) - float(a)) / abs(float(a)):.3g}")
+                    f"float64 on the CPU {f64[i]!r}, relative error {abs(float(g) - float(a)) / abs(float(a)):.3g}")
         for name, e in err.items():
             lim = 1.0 if "site" in name else (BLEN_LL_RTOL if "optimize" in name else LL_RTOL)
             check(e <= lim, f"likelihood on CUDA != CPU: {name} error {e:.3g} > {lim}")
@@ -1116,6 +1190,7 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
     log(f"  align.cells {c['align.cells']:.4g}, rescore.cells {c['rescore.cells']:.4g}, "
         f"align.seconds {c['align.seconds']:.2f}, rescore.seconds {c['rescore.seconds']:.2f}, "
         f"banded.seconds {c.get('banded.seconds', 0.0):.2f} (inside the two before), "
+        f"prefilter.featurize.seconds {c.get('prefilter.featurize.seconds', 0.0):.3f}, "
         f"stage.cluster.seconds {c['stage.cluster.seconds']:.2f}")
     log(f"  tree: genes aligned {len(genes)}, msa.cells {t['msa.cells']:.4g}, "
         f"msa.seconds {t['msa.seconds']:.2f}, msa.nw.seconds {t['msa.nw.seconds']:.2f}, "
@@ -1840,6 +1915,26 @@ def low_precision_requested():
         torch.backends.cudnn.allow_tf32, mm.allow_bf16_reduced_precision_reduction = prev
 
 
+def check_3di_ties(seqs, ref, got, lg, what):
+    """`got` 3Di strings against `ref` under the tie rule of
+    tests/torch_port_helpers.py: every differing letter where `lg` (the
+    reference's framed logits, one row per sequence) has a top-two gap
+    below TIE_RTOL_BF16 of its largest |logit|, and at least MIN_AGREE of
+    the letters equal.  Returns (letters differing, letters, widest gap)."""
+    n_diff = n_all = 0
+    widest = 0.0
+    for i, (s, r, g) in enumerate(zip(seqs, ref, got)):
+        check(len(r) == len(g) == len(s), f"{what}: 3Di length of sequence {i}")
+        diff = [p for p in range(len(s)) if r[p] != g[p]]
+        n_diff, n_all = n_diff + len(diff), n_all + len(s)
+        top = np.sort(lg[i, 1:len(s) + 1][diff], axis=-1)
+        gaps = (top[:, -1] - top[:, -2]) / np.abs(lg[i, 1:len(s) + 1]).max()
+        widest = max([widest, *gaps])
+        check(np.all(gaps < TIE_RTOL_BF16), f"{what}: differ off a tie: sequence {i} at {diff}")
+    check(n_diff <= (1 - MIN_AGREE) * n_all, f"{what}: {n_diff} of {n_all} letters differ")
+    return n_diff, n_all, widest
+
+
 def phase_prostt5_cross(ctx, work):
     """Phase 8b: the model at ProtT5-XL's width with 2 of its 24 layers (a
     checkpoint of its own, config.json num_layers 2) on the card against
@@ -1884,17 +1979,7 @@ def phase_prostt5_cross(ctx, work):
     max_dev = float(np.abs(lg_gpu[res] - lg[res]).max() / np.abs(lg[res]).max())
     d_gpu, d_f32 = (np.asarray(d, np.float64) for d in (lg_gpu[res] - lg[res], lg[res] - lg32[res]))
     spread = float(np.sqrt(np.mean(d_gpu ** 2) / np.mean(d_f32 ** 2)))
-    n_diff = n_all = 0
-    widest = 0.0
-    for i, (s, r, g) in enumerate(zip(seqs, ref, got)):
-        check(len(r) == len(g) == len(s), f"3Di length of sequence {i}")
-        diff = [p for p in range(len(s)) if r[p] != g[p]]
-        n_diff, n_all = n_diff + len(diff), n_all + len(s)
-        top = np.sort(lg[i, 1:len(s) + 1][diff], axis=-1)
-        gaps = (top[:, -1] - top[:, -2]) / np.abs(lg[i, 1:len(s) + 1]).max()
-        widest = max([widest, *gaps])
-        check(np.all(gaps < TIE_RTOL_BF16), f"bf16 3Di CUDA != CPU off a tie: sequence {i} at {diff}")
-    check(n_diff <= (1 - MIN_AGREE) * n_all, f"bf16 3Di CUDA vs CPU: {n_diff} of {n_all} letters differ")
+    n_diff, n_all, widest = check_3di_ties(seqs, ref, got, lg, "bf16 3Di CUDA vs CPU")
     check(spread <= BF16_SPREAD, f"bf16 logits CUDA vs CPU: {spread:.3g} of the CPU's bf16 rounding "
           f"(limit {BF16_SPREAD})")
     for name, e in err.items():
@@ -1907,6 +1992,380 @@ def phase_prostt5_cross(ctx, work):
         f"of {n_all} letters equal (the rest ties, widest gap {widest:.3g} of max|logit|, limit {TIE_RTOL_BF16:.3g}); "
         f"{time.perf_counter() - t0:.1f} s")
     return err
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the multi-device paths
+# ---------------------------------------------------------------------------
+
+def logical_mesh(dev, n=LOGICAL_SHARDS):
+    """A 1-D mesh of `n` shards of one card: the multi-device code paths,
+    their shards one after another on that card."""
+    from unicore_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[dev] * n, dp=n, tp=1)
+
+
+@contextlib.contextmanager
+def local_mesh_is(mesh):
+    """parallel.mesh.local_mesh patched to give `mesh` (None: no mesh) to
+    callers on CUDA, as it gives every card on a machine with several;
+    restored after."""
+    import torch
+
+    from unicore_tpu_torch.parallel import mesh as mesh_mod
+
+    real = mesh_mod.local_mesh
+    mesh_mod.local_mesh = lambda device=None: (
+        mesh if device is not None and torch.device(device).type == "cuda" else None)
+    try:
+        yield
+    finally:
+        mesh_mod.local_mesh = real
+
+
+def phase_sharded_sw(ctx, mesh):
+    """Phase 9a: sw_forward_sharded on `mesh` (and over every card where
+    there are several) against one sw_forward_cuda call and the plain
+    version, bit-exact on (best, qend, tend): at KERNEL_SHAPE gapped with
+    gap_window 64 and bias on (the engine's), gapped with gap_window 0
+    and no bias, ungapped with bias, and RAGGED_B pairs padded as the
+    engine pads.  Then its ms at KERNEL_SHAPE (the engine's setting) on
+    `mesh` beside the single call's and the plain version's, and its
+    bound: the shards' bounds summed over the distinct devices.  Returns
+    the numbers of the kernel line's row."""
+    import torch
+
+    from unicore_tpu_torch.ops import sw_cuda
+    from unicore_tpu_torch.ops.sw import sw_forward_plain
+    from unicore_tpu_torch.parallel import mesh as mesh_mod
+
+    saa, s3d, dev = ctx["saa"], ctx["s3d"], ctx["dev"]
+    meshes = [(f"{LOGICAL_SHARDS} shards of one card", mesh)]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards", mesh_mod.local_mesh(dev)))
+    else:
+        log(f"[phase 9a] one card ({torch.cuda.device_count()}): the mesh over every card is not run")
+    B, L = KERNEL_SHAPE
+    settings = [("gapped", "on", B, dict(gap_window=64)), ("gapped", "off", B, dict(gap_window=0)),
+                ("ungapped", "on", B, dict(ungapped=True)), ("gapped", "on", RAGGED_B, dict(gap_window=64))]
+    max_err, n_cmp = 0.0, 0
+    t0 = time.perf_counter()
+    for name, m in meshes:
+        nd = mesh_mod.n_shards(m)
+        for kind, bias, B0, kw in settings:
+            args, qc = sw_inputs(ctx["rng"], B0, L, bias, ctx["saa_np"], ctx["s3d_np"], dev)
+            Bp = mesh_mod.round_up(B0, nd * 16)  # align/engine.py's padding
+            pad = mesh_mod.pad_rows
+            padded = [pad(x, Bp, v) for x, v in zip(args, (20, 20, 20, 20, 1, 1))]
+            sh = sw_cuda.sw_forward_sharded(*padded, saa, s3d, m, qc=None if qc is None else pad(qc, Bp, 0), **kw)
+            one = sw_cuda.sw_forward_cuda(*args, saa, s3d, qc=qc, **kw)
+            plain = sw_forward_plain(*args, saa, s3d, qc=qc, **kw)
+            torch.cuda.synchronize()
+            sh = [x[:B0] for x in sh]
+            max_err = max(max_err, float((sh[0] - plain[0]).abs().max()))
+            check(all(torch.equal(a, b) for a, b in zip(sh, one)) and all(torch.equal(a, b) for a, b in zip(sh, plain)),
+                  f"sw_forward_sharded on {name} != one call / plain at B={B0} L={L} {kind} bias={bias} {kw}")
+            n_cmp += 1
+    # times on the logical mesh, the engine's setting (phase 3's timed one)
+    args, qc = sw_inputs(ctx["rng"], B, L, "on", ctx["saa_np"], ctx["s3d_np"], dev)
+    kw = TIMED_MODES["gapped"]
+    ms = time_cuda(lambda: sw_cuda.sw_forward_sharded(*args, saa, s3d, mesh, qc=qc, **kw), SHARDED_REPS)
+    one_ms = time_cuda(lambda: sw_cuda.sw_forward_cuda(*args, saa, s3d, qc=qc, **kw), SHARDED_REPS)
+    plain_ms = time_cuda(lambda: sw_forward_plain(*args, saa, s3d, qc=qc, **kw), 1)
+    devices = mesh_mod.shard_devices(mesh)
+    b = B // len(devices)
+    ops_ms = bytes_ms = 0.0
+    for k in range(len(devices)):
+        _, o, by = bound_of(ctx, [x[k * b:(k + 1) * b] for x in args], qc[k * b:(k + 1) * b], "gapped")
+        ops_ms, bytes_ms = ops_ms + o, bytes_ms + by
+    n_distinct = len(set(devices))
+    bound_ms = max(ops_ms, bytes_ms) / n_distinct
+    log(f"[phase 9a] sw_forward_sharded bit-exact against one call and the plain version in {n_cmp} "
+        f"comparisons ({', '.join(n for n, _ in meshes)}; gapped w64 and w0, ungapped, bias on and off, "
+        f"B {B} and {RAGGED_B} padded to {mesh_mod.round_up(RAGGED_B, LOGICAL_SHARDS * 16)}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  at ({B}, {L}) gapped, gap_window 64, bias on: {ms:.4f} ms on {LOGICAL_SHARDS} shards of one card "
+        f"({n_distinct} distinct device), one call {one_ms:.4f} ms, plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms "
+        f"({'operations' if ops_ms >= bytes_ms else 'bytes'}; {ctx['smi']})")
+    return dict(ms=ms, one_ms=one_ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=max_err,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _band_pairs(rng, B, L):
+    """B long pairs (bucket L): each target a shifted, mutated copy of its
+    query with two short indels; d0 from the engine's diagonal vote."""
+    from unicore_tpu_torch.ops.banded import vote_diagonal
+
+    qa, qs, ta, ts = (np.full((B, L), 20, np.int32) for _ in range(4))
+    ql, tl, d0 = np.ones(B, np.int32), np.ones(B, np.int32), np.zeros(B, np.int32)
+    for b in range(B):
+        n = rng.randint(L // 2, L - 64)
+        a, s = rng.randint(0, 20, n).astype(np.int32), rng.randint(0, 20, n).astype(np.int32)
+        shift = rng.randint(0, 40)
+        t_a = np.concatenate([rng.randint(0, 20, shift), a]).astype(np.int32)
+        t_s = np.concatenate([rng.randint(0, 20, shift), s]).astype(np.int32)
+        sub = rng.randint(shift, len(t_a), n // 8)
+        t_a[sub] = rng.randint(0, 20, len(sub))
+        cut = rng.randint(shift + 20, len(t_a) - 20)
+        t_a, t_s = np.delete(t_a, slice(cut, cut + 3)), np.delete(t_s, slice(cut, cut + 3))
+        t_a, t_s = t_a[:L], t_s[:L]
+        ql[b], tl[b] = n, len(t_a)
+        qa[b, :n], qs[b, :n], ta[b, :len(t_a)], ts[b, :len(t_s)] = a, s, t_a, t_s
+        d0[b] = vote_diagonal(a, s, t_a, t_s) or 0
+    qc = rng.randint(-60, 40, (B, L)).astype(np.int32)
+    return qa, qs, ta, ts, ql, tl, d0, qc
+
+
+def phase_sharded_banded_nw(ctx, mesh):
+    """Phase 9b: sw_forward_banded_sharded (gapped with gap_window 64 and
+    ungapped, bias on) and nw_forward_bits_sharded on `mesh`, each
+    bit-identical to one call of its single-device function on the card."""
+    import torch
+
+    from unicore_tpu_torch.ops import banded, nw_device
+    from unicore_tpu_torch.synthetic import nw_scores
+
+    t0 = time.perf_counter()
+    dev, saa, s3d = ctx["dev"], ctx["saa"], ctx["s3d"]
+    B, L, W = BANDED_9B
+    arrays = [torch.from_numpy(x).to(dev) for x in _band_pairs(ctx["rng"], B, L)]
+    for kw in (dict(gap_window=64), dict(ungapped=True)):
+        sh = banded.sw_forward_banded_sharded(*arrays[:7], saa, s3d, mesh, W=W, qc=arrays[7], **kw)
+        one = banded.sw_forward_banded(*arrays[:7], saa, s3d, W=W, qc=arrays[7], **kw)
+        check(all(torch.equal(a, b) for a, b in zip(sh, one)), f"sw_forward_banded_sharded != one call, {kw}")
+        check(float(one[0].max()) > 0, "9b: the banded pairs scored nothing")
+    Bn, Ln = NW_9B
+    S, l1, l2 = (torch.from_numpy(x).to(dev) for x in nw_scores(ctx["rng"], Bn, Ln, Ln, "rand"))
+    sh = nw_device.nw_forward_bits_sharded(S, l1, l2, 2816, 256, mesh)
+    one = nw_device.nw_forward_bits(S, l1, l2, 2816, 256)
+    check(all(torch.equal(a, b) for a, b in zip(sh, one)), "nw_forward_bits_sharded != one call")
+    torch.cuda.synchronize()
+    log(f"[phase 9b] sw_forward_banded_sharded ({B} pairs, bucket {L}, W {W}; gapped and ungapped) and "
+        f"nw_forward_bits_sharded ({Bn} pairs, bucket {Ln}) on {LOGICAL_SHARDS} shards bit-identical to one "
+        f"call each in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sharded_phylo(ctx, st, mesh):
+    """Phase 9c, under TF32 settings: loglik_batch and site_loglik_batch of
+    phase 3c's 64 candidates (20 taxa x 8,192 columns, JTT+F+I+G) with
+    mesh= `mesh` against mesh=False, and _loglik_multi_sharded of
+    GENES_9C genes of that width x CANDIDATES_9C candidates against one
+    _loglik_multi_impl call, within SHARD_LL_RTOL + SHARD_LL_ATOL."""
+    import torch
+
+    from unicore_tpu_torch.phylo import genebatch as gb
+    from unicore_tpu_torch.phylo import likelihood as tl
+    from unicore_tpu_torch.phylo import models as tm
+    from unicore_tpu_torch.phylo import search as ts
+    from unicore_tpu_torch.synthetic import simulate_msa
+
+    t0 = time.perf_counter()
+    gpu, cb, bb = st["gpu"], st["cb"], st["bb"]
+    err = {}
+
+    def rel(ref, got):
+        ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+        check(ref.shape == got.shape, f"9c: shapes {ref.shape} != {got.shape}")
+        return float(np.max(np.abs(got - ref) / (SHARD_LL_ATOL + SHARD_LL_RTOL * np.abs(ref))))
+
+    with tf32_requested():
+        err["loglik_batch"] = rel(gpu.loglik_batch(cb, bb, mesh=False), gpu.loglik_batch(cb, bb, mesh=mesh))
+        err["site_loglik_batch"] = rel(gpu.site_loglik_batch(cb, bb, mesh=False),
+                                       gpu.site_loglik_batch(cb, bb, mesh=mesh))
+        msas = [simulate_msa(np.random.RandomState(PHYLO["seed"] + 1 + g), PHYLO["n"], PHYLO["L"])
+                for g in range(GENES_9C)]
+        bucket = max(gb.pattern_bucket(tl.compress_patterns(tl.msa_to_codes(list(m), list(m.values())))[0].shape[1])
+                     for m in msas)
+        engines, cbs, bbs = [], [], []
+        for m in msas:
+            names, seqs = list(m), list(m.values())
+            model = tm.SubstModel.build(tm.ModelSpec.parse(PHYLO["model"]), alpha=PHYLO["alpha"],
+                                        p_inv=PHYLO["p_inv"],
+                                        empirical_freqs=tl.empirical_frequencies(tl.msa_to_codes(names, seqs)))
+            engines.append(tl.LikelihoodEngine(names, seqs, model, device=ctx["dev"], pad_patterns_to=bucket))
+            c, b = _nj_start(m, 1e-3)
+            arr = [tl.tree_to_arrays(x, names) for x in ts.nni_neighbors(tl.arrays_to_tree(c, b, names))]
+            cbs.append(np.stack([a[0] for a in arr[:CANDIDATES_9C]]))
+            bbs.append(np.stack([a[1] for a in arr[:CANDIDATES_9C]]).astype(np.float32))
+        keys = ("eigvals", "U", "Uinv", "pi", "rates", "props")
+        mp = {k + "_g": torch.stack([e._mp[k] for e in engines]) for k in keys}
+        tips, w = torch.stack([e.tips for e in engines]), torch.stack([e.w for e in engines])
+        cgk, bgk = np.stack(cbs), np.stack(bbs)
+        with tl.full_fp32(), torch.no_grad():
+            one = gb._loglik_multi_impl(torch.from_numpy(cgk).to(ctx["dev"]), torch.from_numpy(bgk).to(ctx["dev"]),
+                                        tips, w, **mp).cpu().numpy()
+        err["_loglik_multi_sharded"] = rel(one, gb._loglik_multi_sharded(mesh, cgk, bgk, tips, w, mp))
+        check(torch.get_float32_matmul_precision() == "high", "9c: the engine did not restore the matmul precision")
+    for name, e in err.items():
+        check(e <= 1.0, f"9c: {name} sharded != one device at {e:.3g} of the tolerance")
+    log(f"[phase 9c] likelihood on {LOGICAL_SHARDS} shards vs one device under TF32 settings ({len(cb)} candidates; "
+        f"{GENES_9C} genes x {CANDIDATES_9C} candidates at {PHYLO['n']} taxa x {bucket} patterns), errors as a share "
+        f"of rtol {SHARD_LL_RTOL} + atol {SHARD_LL_ATOL}: " + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def start_dist_check():
+    """Phase 9e, start: DIST_RANKS processes of
+    `python -m unicore_tpu_torch.parallel.dist_check --device cuda`, each a
+    rank of one gloo group on this card (NCCL refuses two ranks on one
+    card), brought up through initialize_distributed by the three
+    variables; returns the processes."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT, UNICORE_TPU_COORDINATOR=f"127.0.0.1:{port}",
+               UNICORE_TPU_NUM_PROCS=str(DIST_RANKS))
+    procs = []
+    with _RUNNING_LOCK:
+        check(not _STOPPED.is_set(), "9e: the run is stopping")
+        for rank in range(DIST_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "unicore_tpu_torch.parallel.dist_check", "--device", "cuda"],
+                env=dict(env, UNICORE_TPU_PROC_ID=str(rank)), cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            _RUNNING.add(procs[-1])
+    return procs, time.perf_counter()
+
+
+def finish_dist_check(started):
+    """Phase 9e, end: every rank exited 0 having checked the gathered
+    results and the all-reduced hit count against its full local
+    reference, on gloo, with one kernel launch on its block."""
+    procs, t0 = started
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        with _RUNNING_LOCK:
+            for p in procs:
+                p.kill()
+                _RUNNING.discard(p)
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and f"OK procs={DIST_RANKS} backend=gloo" in out and "launches=1" in out,
+              f"9e: rank {rank} exited {p.returncode}:\n{out[-3000:]}")
+    line = [l for l in outs[0].splitlines() if l.startswith("OK")][0]
+    log(f"[phase 9e] {DIST_RANKS} ranks through initialize_distributed (gloo, kernels on this card, collectives "
+        f"on host copies): {line}; {time.perf_counter() - t0:.1f} s from their start")
+
+
+def phase_sharded_engines(ctx, work, mesh):
+    """Phase 9d: the engines' multi-device branches with local_mesh patched
+    to `mesh`, against the same calls unpatched, on the card:
+    AlignmentEngine.align_pairs on phase 4's first SHARD_SPECIES x 120
+    sequences (prefilter pairs; the E-value fit made anew on each side,
+    so the calibration goes through the branch too) with equal hits and
+    equal fitted statistics; nw_align_batch on NW_MATRICES_9D score
+    matrices with equal paths and scores; ProstT5Engine.predict at
+    ProtT5-XL's width with 8b's 2 of 24 layers, bf16, 3Di under the tie
+    rule.  The sharded route's kernel launches are counted from 0 over
+    the patched runs and both modes must have launched.  Returns them."""
+    import torch
+
+    from unicore_tpu_torch.align.engine import AlignmentEngine, encode_db
+    from unicore_tpu_torch.align.prefilter import candidate_pairs
+    from unicore_tpu_torch.io.seqdb import SeqDB
+    from unicore_tpu_torch.models import prostt5 as P
+    from unicore_tpu_torch.ops import nw, nw_device, sw_cuda
+
+    t0 = time.perf_counter()
+    dev = ctx["dev"]
+    db = SeqDB.read(os.path.join(work, "main", "proteome", "proteome_db"), require_ss=True)
+    n = SHARD_SPECIES * PER_SPECIES
+    aa, ss = db.aa_seqs[:n], db.ss_seqs[:n]
+    q_aa, q_ss = encode_db(aa, ss)
+    pairs = candidate_pairs(aa, ss, coverage=0.8, device=dev)
+    rng = np.random.RandomState(99)
+    S_list = [nw.quantize_scores(rng.randn(a, b) * 2.0 - 1.0 + 6.0 * np.eye(a, b))
+              for a, b in rng.randint(1, 700, (NW_MATRICES_9D, 2))]
+    seqs = [_random_aa(rng, k) for k in rng.randint(30, 121, CROSS_PROSTT5_SEQS)]
+    ckpt = os.path.join(work, "prostt5_cross")  # phase 8b's checkpoint
+    home = os.environ["HOME"]
+    runs = {}
+    try:
+        for side in ("single", "sharded"):
+            os.environ["HOME"] = os.path.join(work, f"home_9d_{side}")  # a fresh E-value fit
+            with local_mesh_is(mesh if side == "sharded" else None):
+                if side == "sharded":
+                    sw_cuda.reset_launch_counts()
+                eng = AlignmentEngine(device=dev)
+                hits = eng.align_pairs(q_aa, q_ss, q_aa, q_ss, pairs)
+                paths = nw_device.nw_align_batch(S_list, 2816, 256, device=dev)
+                p5 = P.ProstT5Engine(ckpt, device=dev)
+                codes = p5.predict(seqs)
+                if side == "sharded":
+                    launches = dict(sw_cuda.SHARDED_LAUNCHES)
+                    check(p5._dp[0] == LOGICAL_SHARDS, f"9d: ProstT5 predicted on {p5._dp[0]} shards")
+            runs[side] = (hits, eng._stats(), paths, codes, p5)
+    finally:
+        os.environ["HOME"] = home
+    (h1, st1, p1, c1, e1), (h2, st2, p2, c2, _) = runs["single"], runs["sharded"]
+    check(launches["gapped"] > 0 and launches["ungapped"] > 0,
+          f"9d: the sharded route did not launch both kernel modes: {launches}")
+    check([dataclasses.astuple(h) for h in h1] == [dataclasses.astuple(h) for h in h2],
+          f"9d: align_pairs sharded != single ({len(h1)} and {len(h2)} hits)")
+    check(all(np.array_equal(getattr(st1, k), getattr(st2, k)) for k in ("lengths", "lams", "Ks")),
+          "9d: the E-value fit through the sharded branch differs")
+    check(p1 == p2, "9d: nw_align_batch sharded != single")
+    toks, mask = P.frame_batch(seqs, P._bucket_len(max(map(len, seqs)) + 2))
+    lg = P.residue_logits(e1.model, torch.from_numpy(toks).to(dev), torch.from_numpy(mask).to(dev)).float().cpu().numpy()
+    n_diff, n_all, widest = check_3di_ties(seqs, c1, c2, lg, "9d: ProstT5 sharded vs single")
+    log(f"[phase 9d] engine branches on {LOGICAL_SHARDS} shards of one card equal to one device: align_pairs "
+        f"{len(pairs)} pairs of {n} sequences, {len(h2)} hits, the E-value fit equal; nw_align_batch "
+        f"{len(S_list)} merges; ProstT5 (2 of 24 layers, bf16) {n_all - n_diff} of {n_all} letters equal "
+        f"(widest differing gap {widest:.3g}); sharded launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_native(ctx, work):
+    """Phase 9f: the native featurizer on phase 4's 2,400 sequences,
+    bit-identical to its plain version; the better of two timed calls of
+    each (the library is already built by phase 4's cluster stage)."""
+    from unicore_tpu_torch import native
+    from unicore_tpu_torch.align import prefilter
+    from unicore_tpu_torch.io.seqdb import SeqDB
+
+    t0 = time.perf_counter()
+    native.load()
+    load_s = time.perf_counter() - t0
+    db = SeqDB.read(os.path.join(work, "main", "proteome", "proteome_db"), require_ss=True)
+    times = {}
+    for name, fn in (("native", prefilter.featurize), ("plain", prefilter.featurize_plain)):
+        best = None
+        for _ in range(2):
+            t = time.perf_counter()
+            feats = fn(db.aa_seqs, db.ss_seqs)
+            best = min(best or 1e9, time.perf_counter() - t)
+        times[name] = (best, feats)
+    check(np.array_equal(times["native"][1], times["plain"][1]), "9f: native featurize != plain")
+    log(f"[phase 9f] featurize on {len(db)} sequences ({int(sum(map(len, db.aa_seqs)))} residues), "
+        f"bit-identical: native {times['native'][0] * 1e3:.2f} ms, plain {times['plain'][0] * 1e3:.2f} ms "
+        f"(host, {os.cpu_count()} cores; library load {load_s * 1e3:.1f} ms)")
+    return {k: v[0] for k, v in times.items()}
+
+
+def phase_multi_device(ctx, work, phylo):
+    """Phase 9: 9a-9c and 9d on a logical mesh of LOGICAL_SHARDS shards of
+    the card, 9e's ranks started before 9d and joined after it, then 9f.
+    Returns 9a's numbers with 9d's sharded launches."""
+    mesh = logical_mesh(ctx["dev"])
+    with span("phase 9a"):
+        row = phase_sharded_sw(ctx, mesh)
+    with span("phase 9b"):
+        phase_sharded_banded_nw(ctx, mesh)
+    with span("phase 9c"):
+        phase_sharded_phylo(ctx, phylo, mesh)
+    ranks = start_dist_check()
+    with span("phase 9d"):
+        row["launches"] = phase_sharded_engines(ctx, work, mesh)
+    with span("phase 9e"):
+        finish_dist_check(ranks)
+    with span("phase 9f"):
+        phase_native(ctx, work)
+    return row
 
 
 def phase6_op_times(ctx, msa_files):
@@ -2102,6 +2561,8 @@ def main() -> int:
             phase_prostt5(ctx, work)
         with span("phase 8b"):
             phase_prostt5_cross(ctx, work)
+        with span("phase 9"):
+            sharded = phase_multi_device(ctx, work, inputs["phylo"])
     finally:
         stop_cli_runs()
         shutil.rmtree(work, ignore_errors=True)
@@ -2117,6 +2578,14 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
+    kernels.append({
+        "name": "sw_forward_sharded", "route": "cuda",
+        "source": "unicore_tpu_torch/csrc/sw.cu",
+        "replaces": "unicore_tpu/ops/sw.py:718",
+        "launches": sum(sharded["launches"].values()), "max_abs_err": sharded["max_abs_err"],
+        "ms": sharded["ms"], "plain_ms": sharded["plain_ms"], "bound_ms": sharded["bound_ms"],
+        "bound_by": sharded["bound_by"], "library_ms": None,
+    })
     log(f"total {clock():.1f} s ({ctx['smi']})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,13 @@ banded SW (ops/banded.py) in plain PyTorch on the same device.
 
 `traceback_fill` (the m8 columns of `search`, and `--min-seq-id > 0`)
 runs its short windows' forward DPs on the engine's device through
-ops/sw_bits.py and its long windows on the host.  Not ported: the
-multi-device branches of the JAX engine (one H100 runs one device).
+ops/sw_bits.py and its long windows on the host.
+
+Where parallel.mesh.local_mesh gives a mesh (several cards), the
+full-matrix and banded batches are padded to a multiple of the shards
+and run data-parallel over them (`sw_forward_sharded`,
+`sw_forward_banded_sharded`), as the JAX engine's multi-device branches
+do; the substitution matrices are copied to each card once.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 from unicore_tpu_torch.alphabets import encode_3di, encode_aa
 from unicore_tpu_torch.align import stats
 from unicore_tpu_torch.matrices import W_3DI, W_AA, get_3di_matrix, get_aa_matrix
+from unicore_tpu_torch.parallel import mesh as mesh_mod
 from unicore_tpu_torch.runtime import device as device_mod
 from unicore_tpu_torch.runtime import logging as msg
 from unicore_tpu_torch.runtime import profiling
@@ -183,6 +189,9 @@ class AlignmentEngine:
                                  "(bf16/int16 exactness contract, ops/sw.py)")
         self._saa_t = torch.from_numpy(self.saa).to(self.device)
         self._s3d_t = torch.from_numpy(self.s3d).to(self.device)
+        # one copy per device of a mesh, made at its first sharded batch
+        self._saa_r = mesh_mod.Replicas(self._saa_t)
+        self._s3d_r = mesh_mod.Replicas(self._s3d_t)
         self._lambda = stats.combined_lambda(
             self.saa[:20, :20], self.s3d[:20, :20], self.params.w_aa, self.params.w_3di
         )
@@ -242,6 +251,24 @@ class AlignmentEngine:
             qc = composition_bias(qa, qs, qlen, self.saa, self.s3d,
                                   p.w_aa, p.w_3di)
         dev = self.device
+        mesh = mesh_mod.local_mesh(dev)
+        if mesh is not None:
+            # several devices: pad the batch to a multiple of devices x 16
+            # (code 20, length 1, zero bias), never fall back to one device
+            # for a tail batch, and slice the pad rows off again
+            from unicore_tpu_torch.ops.sw_cuda import sw_forward_sharded
+
+            B0 = qa.shape[0]
+            B = _round_up(B0, mesh_mod.n_shards(mesh) * 16)
+            pad = mesh_mod.pad_rows
+            best, qe, te = sw_forward_sharded(
+                pad(qa, B, 20), pad(qs, B, 20), pad(ta, B, 20), pad(ts, B, 20),
+                pad(qlen, B, 1), pad(tlen, B, 1), self._saa_r, self._s3d_r, mesh,
+                go=p.gap_open, ge=p.gap_extend, w_aa=p.w_aa, w_3di=p.w_3di,
+                ungapped=ungapped, gap_window=p.gap_window,
+                qc=None if qc is None else pad(qc, B, 0),
+            )
+            return best[:B0], qe[:B0], te[:B0]
         return sw_forward_cuda(
             _as_i32(qa, dev), _as_i32(qs, dev), _as_i32(ta, dev), _as_i32(ts, dev),
             _as_i32(qlen, dev), _as_i32(tlen, dev), self._saa_t, self._s3d_t,
@@ -346,11 +373,14 @@ class AlignmentEngine:
         -> device band scan, O(Lq*W) per pair.  Pairs with zero k-mer
         matches score 0 (nothing a 6-mer-free pair could contribute past
         the gates).  Same dispatch-then-collect overlap as _sw_pass."""
-        from unicore_tpu_torch.ops.banded import sw_forward_banded, vote_diagonal
+        from unicore_tpu_torch.ops.banded import (
+            sw_forward_banded, sw_forward_banded_sharded, vote_diagonal,
+        )
         from unicore_tpu_torch.runtime import profiling
 
         p = self.params
         dev = self.device
+        mesh = mesh_mod.local_mesh(dev)
         t0 = __import__("time").time()
         out: Dict[int, Tuple[float, int, int]] = {}
         buckets: Dict[Tuple[int, int, int], List[tuple]] = {}
@@ -420,15 +450,30 @@ class AlignmentEngine:
                     d0[row] = ed
                     if qcb is not None and eqc is not None:
                         qcb[row, : ql[row]] = eqc
-                res = sw_forward_banded(
-                    _as_i32(qa, dev), _as_i32(qs, dev), _as_i32(ta, dev), _as_i32(ts, dev),
-                    _as_i32(ql, dev), _as_i32(tl, dev), _as_i32(d0, dev),
-                    self._saa_t, self._s3d_t,
-                    W=W, go=p.gap_open, ge=p.gap_extend,
-                    w_aa=p.w_aa, w_3di=p.w_3di,
-                    gap_window=p.gap_window, ungapped=ungapped,
-                    qc=None if qcb is None else _as_i32(qcb, dev),
-                )
+                if mesh is not None:
+                    # several devices: pad to a multiple of them (d0 = 0 on
+                    # pad rows), as _forward_batch does
+                    Bd = _round_up(B, mesh_mod.n_shards(mesh))
+                    pad = mesh_mod.pad_rows
+                    res = sw_forward_banded_sharded(
+                        pad(qa, Bd, 20), pad(qs, Bd, 20), pad(ta, Bd, 20), pad(ts, Bd, 20),
+                        pad(ql, Bd, 1), pad(tl, Bd, 1), pad(d0, Bd, 0),
+                        self._saa_r, self._s3d_r, mesh,
+                        W=W, go=p.gap_open, ge=p.gap_extend,
+                        w_aa=p.w_aa, w_3di=p.w_3di,
+                        gap_window=p.gap_window, ungapped=ungapped,
+                        qc=None if qcb is None else pad(qcb, Bd, 0),
+                    )
+                else:
+                    res = sw_forward_banded(
+                        _as_i32(qa, dev), _as_i32(qs, dev), _as_i32(ta, dev), _as_i32(ts, dev),
+                        _as_i32(ql, dev), _as_i32(tl, dev), _as_i32(d0, dev),
+                        self._saa_t, self._s3d_t,
+                        W=W, go=p.gap_open, ge=p.gap_extend,
+                        w_aa=p.w_aa, w_3di=p.w_3di,
+                        gap_window=p.gap_window, ungapped=ungapped,
+                        qc=None if qcb is None else _as_i32(qcb, dev),
+                    )
                 inflight.append((chunk, res))
                 profiling.add_counter(f"{counter}.cells", float(B) * LQ * W)
         for chunk, res in inflight:

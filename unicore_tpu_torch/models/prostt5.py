@@ -40,8 +40,10 @@ where a key is valid the mask is 0, so the sum is JAX's
 `scores + bias + mask`.  Attention runs over chunks of batch rows of at
 most ATTN_CHUNK_BYTES of float32 scores.
 
-One device only: the JAX engine's data-parallel path (`_dp_setup`,
-parallel/sharding.py) is not ported.
+Where parallel.mesh.local_mesh gives a mesh (several cards), the engine
+predicts data-parallel through parallel/sharding.py's
+`make_sharded_predict`, one replica per card, each batch padded to a
+multiple of 8 rows per card (the JAX engine's `_dp_setup`).
 """
 
 from __future__ import annotations
@@ -62,6 +64,8 @@ from torch import nn
 
 from unicore_tpu_torch.alphabets import TDI_ALPHABET, encode_aa
 from unicore_tpu_torch.models.tokenizer import load_vocab
+from unicore_tpu_torch.parallel import mesh as mesh_mod
+from unicore_tpu_torch.parallel import sharding
 from unicore_tpu_torch.runtime import device as device_mod
 from unicore_tpu_torch.runtime import logging as msg
 from unicore_tpu_torch.runtime import profiling
@@ -618,12 +622,12 @@ def _bucket_len(n: int) -> int:
     return b
 
 
-def frame_batch(sequences: List[str], L: int):
+def frame_batch(sequences: List[str], L: int, multiple: int = 8):
     """(tokens, mask) numpy arrays of `sequences` framed
     ``[<AA2fold>, residues..., </s>]`` in rows of length L, the batch
-    padded to a multiple of 8 rows."""
+    padded to a multiple of `multiple` rows."""
     B = len(sequences)
-    Bp = ((B + 7) // 8) * 8
+    Bp = ((B + multiple - 1) // multiple) * multiple
     toks = np.full((Bp, L), TOK_PAD, dtype=np.int64)
     mask = np.zeros((Bp, L), dtype=bool)
     for r, s in enumerate(sequences):
@@ -637,7 +641,8 @@ def frame_batch(sequences: List[str], L: int):
 
 
 class ProstT5Engine:
-    """Batched AA->3Di inference engine on one device.
+    """Batched AA->3Di inference engine on one device, or data-parallel
+    over several cards (parallel.mesh.local_mesh).
 
     Counters (runtime/profiling): `prostt5.load.seconds`,
     `prostt5.batches`, `prostt5.residues`, `prostt5.padded_tokens`,
@@ -683,9 +688,19 @@ class ProstT5Engine:
             state = init_params(self.cfg, seed=seed)
         self.model = build_model(self.cfg, state, self.device)
         self.batch_tokens = batch_tokens
+        self._dp = None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         profiling.add_counter("prostt5.load.seconds", time.perf_counter() - t0)
+
+    def _dp_setup(self):
+        """(shards, sharded predict or None): data-parallel inference over
+        parallel.mesh.local_mesh's cards, set up at first use."""
+        if self._dp is None:
+            mesh = mesh_mod.local_mesh(self.device)
+            self._dp = (1, None) if mesh is None else (
+                mesh_mod.n_shards(mesh), sharding.make_sharded_predict(self.cfg, self.model, mesh))
+        return self._dp
 
     def predict(self, sequences: List[str]) -> List[str]:
         """AA->3Di with overlap-window stitching for very long inputs.
@@ -733,6 +748,7 @@ class ProstT5Engine:
         3Di letters are read back at the residue positions."""
         tdi = np.frombuffer(TDI_ALPHABET.encode(), dtype=np.uint8)
         out: List[Optional[str]] = [None] * len(sequences)
+        n_dev, sharded_predict = self._dp_setup()
         order = sorted(range(len(sequences)), key=lambda i: len(sequences[i]))
         t0 = time.perf_counter()
         i = 0
@@ -744,9 +760,12 @@ class ProstT5Engine:
             # keep the chunk within this length bucket
             chunk = [j for j in chunk if len(sequences[j]) + 2 <= L]
             i += len(chunk)
-            toks, mask = frame_batch([sequences[j] for j in chunk], L)
-            codes3 = predict_3di_codes(self.model, torch.from_numpy(toks).to(self.device),
-                                       torch.from_numpy(mask).to(self.device)).cpu().numpy()
+            toks, mask = frame_batch([sequences[j] for j in chunk], L, 8 * n_dev)
+            if sharded_predict is not None:
+                codes3 = sharded_predict(toks, mask)
+            else:
+                codes3 = predict_3di_codes(self.model, torch.from_numpy(toks).to(self.device),
+                                           torch.from_numpy(mask).to(self.device)).cpu().numpy()
             for r, j in enumerate(chunk):
                 n = len(sequences[j])
                 out[j] = tdi[codes3[r, 1 : n + 1]].tobytes().decode()

@@ -24,8 +24,9 @@ function is XLA code, not a Pallas kernel), in the JAX function's float32
 operation order: bit-identical to it on the same inputs.  The host
 traceback of a long window (`band_scores_ref`, `sw_traceback_banded_ref`:
 numpy float64 with NEG = -1e9, the m8 fill of align/engine.py's
-`traceback_fill`) is a copy of the JAX package's.  Not ported: the
-multi-device `sw_forward_banded_sharded`.
+`traceback_fill`) is a copy of the JAX package's.
+`sw_forward_banded_sharded` runs a batch data-parallel over a device
+mesh (parallel/mesh.py), one block of pairs per device.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from unicore_tpu_torch.ops.sw import NEG, _prefix_max
+from unicore_tpu_torch.parallel.mesh import gather, on_device, shard, shard_devices
 
 KMER_K = 6
 _ALPHA2 = 441  # combined (aa, 3di) symbol alphabet: 21 * 21
@@ -270,6 +272,35 @@ def sw_forward_banded(
         bk = torch.where(upd, row_arg, bk)
     tend = (bi + d0 + bk - W2).clamp(0, Lt - 1).to(torch.int32)
     return best, bi, tend
+
+
+def sw_forward_banded_sharded(
+    qa, qs, ta, ts, qlen, tlen, d0,  # arrays or tensors, sw_forward_banded's shapes
+    saa, s3d,                        # (21, 21): arrays, tensors or parallel.mesh.Replicas
+    mesh,
+    W: int = 256,
+    go: float = 100.0,
+    ge: float = 10.0,
+    w_aa: float = 4.0,
+    w_3di: float = 6.0,
+    gap_window: int = 0,
+    ungapped: bool = False,
+    qc=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Banded forward data-parallel over the devices of `mesh`'s first
+    axis (the long-pair analog of ops/sw_cuda.py::sw_forward_sharded):
+    one block of pairs per device, each through `sw_forward_banded` on
+    its device; bit-identical to one call on the whole batch.  B must be
+    a multiple of the number of shards (align/engine.py pads).  Results
+    come back in input order on the first shard's device."""
+    devices = shard_devices(mesh)
+    blocks = [shard(x, devices, torch.int32) for x in (qa, qs, ta, ts, qlen, tlen, d0)]
+    qcs = [None] * len(devices) if qc is None else shard(qc, devices, torch.int32)
+    outs = [sw_forward_banded(*(b[k] for b in blocks), on_device(saa, dev).float(),
+                              on_device(s3d, dev).float(), W=W, go=go, ge=ge, w_aa=w_aa,
+                              w_3di=w_3di, gap_window=gap_window, ungapped=ungapped, qc=qcs[k])
+            for k, dev in enumerate(devices)]
+    return tuple(gather([o[i] for o in outs], devices[0]) for i in range(3))
 
 
 # ---------------------------------------------------------------------------

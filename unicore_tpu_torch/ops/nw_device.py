@@ -24,8 +24,9 @@ Direction bits per cell (i, j), 1-based DP coordinates:
 Counters (runtime/profiling.py): `msa.dispatches` counts the calls of
 `nw_forward_bits`; `msa.nw.seconds` is the host wall time inside them
 plus the wait for their results at collection (the bits' copy to the
-host included).  `nw_forward_bits_sharded` (several devices) is not
-ported.
+host included).  `nw_forward_bits_sharded` runs a batch data-parallel
+over a device mesh (parallel/mesh.py), one block of pairs per device,
+each shard a call of `nw_forward_bits`.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from unicore_tpu_torch.parallel import mesh as mesh_mod
 from unicore_tpu_torch.runtime import device as device_mod
 from unicore_tpu_torch.runtime import profiling
 
@@ -125,6 +127,21 @@ def nw_forward_bits(
     profiling.add_counter("msa.dispatches", 1)
     profiling.add_counter("msa.nw.seconds", time.perf_counter() - t0)
     return bits, end_i, end_j, score
+
+
+def nw_forward_bits_sharded(Sp, l1, l2, go: int, ge: int, mesh):
+    """`nw_forward_bits` data-parallel over the devices of `mesh`'s first
+    axis (unicore_tpu.ops.nw_device.nw_forward_bits_sharded): the merge
+    batch is split into one block of pairs per device, and each block
+    goes through the same forward on its device, so the results are
+    bit-identical to one call on the whole batch.  B must be a multiple
+    of the number of shards (nw_align_batch pads).  (bits, end_i, end_j,
+    score) come back in input order on the first shard's device."""
+    devices = mesh_mod.shard_devices(mesh)
+    S_k = mesh_mod.shard(Sp, devices)
+    l1_k, l2_k = (mesh_mod.shard(x, devices, torch.int32) for x in (l1, l2))
+    outs = [nw_forward_bits(S_k[k], l1_k[k], l2_k[k], go, ge) for k in range(len(devices))]
+    return tuple(mesh_mod.gather([o[i] for o in outs], devices[0]) for i in range(4))
 
 
 def decode_path(
@@ -400,10 +417,14 @@ def nw_align_batch(
 
     Matrices are bucketed to square power-of-two shapes, batched, and
     dispatched before any decode (device compute overlaps host traceback
-    decoding).  The JAX package's branch that shards a batch over several
-    TPU devices is not ported (one card).
+    decoding).  Where parallel.mesh.local_mesh gives a mesh, each batch
+    is padded with 1 x 1 PAD_SCORE DPs to a multiple of its shards and
+    runs through `nw_forward_bits_sharded`; the pad rows are never
+    decoded.
     """
     dev = device_mod.resolve(device)
+    mesh = mesh_mod.local_mesh(dev)
+    nd = mesh_mod.n_shards(mesh)
     out: List = [None] * len(S_list)
     buckets = {}
     for k, S in enumerate(S_list):
@@ -431,10 +452,17 @@ def nw_align_batch(
                     int(Sk.min(initial=0)) > PAD_SCORE, "score exceeds int16 budget"
                 Sp[row, :a, :b] = Sk
                 l1[row], l2[row] = a, b
-            res = nw_forward_bits(
-                torch.from_numpy(Sp).to(dev), torch.from_numpy(l1).to(dev),
-                torch.from_numpy(l2).to(dev), int(go), int(ge),
-            )
+            if mesh is not None:
+                Bd = mesh_mod.round_up(B, nd)
+                res = nw_forward_bits_sharded(
+                    mesh_mod.pad_rows(Sp, Bd, PAD_SCORE), mesh_mod.pad_rows(l1, Bd, 1),
+                    mesh_mod.pad_rows(l2, Bd, 1), int(go), int(ge), mesh,
+                )
+            else:
+                res = nw_forward_bits(
+                    torch.from_numpy(Sp).to(dev), torch.from_numpy(l1).to(dev),
+                    torch.from_numpy(l2).to(dev), int(go), int(ge),
+                )
             inflight.append((chunk, res))
     for chunk, (bits, ei, ej, score) in inflight:
         paths = _nw_decode_device(bits, ei, ej, [S_list[k].shape for k in chunk])

@@ -12,8 +12,13 @@ library with a plain C interface, loaded with ctypes, and cached under
 source and the flags.  The module imports without a CUDA
 toolkit; only the first launch needs one.
 
+`sw_forward_sharded` runs a pair batch data-parallel over a device mesh
+(parallel/mesh.py): one block of pairs per device, each through
+`sw_forward_cuda` on its device.
+
 `LAUNCHES` counts the launches per mode ("gapped", "ungapped"), so a run
-can show that its main path went through the kernel.
+can show that its main path went through the kernel; `SHARDED_LAUNCHES`
+counts those of them made through `sw_forward_sharded`.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from unicore_tpu_torch.ops.sw import (
     GAP_EXTEND_INT, GAP_OPEN_INT, NA, W_3DI_INT, W_AA_INT, sw_forward_plain,
 )
+from unicore_tpu_torch.parallel.mesh import gather, on_device, shard, shard_devices
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sw.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unicore_tpu_torch"
@@ -44,6 +50,8 @@ NVCC_FLAGS = (
 MAX_LT = 4096  # sw.cu: MAX_PAIR_WARPS * 32 * MAX_C
 
 LAUNCHES: Dict[str, int] = {"gapped": 0, "ungapped": 0}
+# launches made through sw_forward_sharded (also counted in LAUNCHES)
+SHARDED_LAUNCHES: Dict[str, int] = {"gapped": 0, "ungapped": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -51,8 +59,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, SHARDED_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -184,6 +193,43 @@ def sw_forward_cuda(
     if B:
         LAUNCHES["ungapped" if ungapped else "gapped"] += 1
     return out
+
+
+def sw_forward_sharded(
+    qa, qs, ta, ts, qlen, tlen,  # arrays or tensors: (B, Lq), (B, Lq), (B, Lt), (B, Lt), (B,), (B,)
+    saa, s3d,                    # (21, 21): arrays, tensors or parallel.mesh.Replicas
+    mesh,
+    go: float = GAP_OPEN_INT,
+    ge: float = GAP_EXTEND_INT,
+    w_aa: float = W_AA_INT,
+    w_3di: float = W_3DI_INT,
+    ungapped: bool = False,
+    gap_window: int = 0,
+    qc=None,                     # (B, Lq) or None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`sw_forward_cuda` data-parallel over the devices of `mesh`'s first
+    axis (unicore_tpu.ops.sw.sw_forward_sharded): the pair batch is split
+    into one block of rows per device, the matrices are replicated, and
+    each block goes through `sw_forward_cuda` on its device (the kernel
+    on a card, the plain version on the CPU).  Pairs are independent, so
+    the results are bit-identical to one call on the whole batch.
+
+    B must be a multiple of the number of shards (align/engine.py pads).
+    Every shard is launched before any is read; (best, qend, tend) come
+    back in input order on the first shard's device, not yet
+    synchronised.  SHARDED_LAUNCHES counts the launches on a card."""
+    devices = shard_devices(mesh)
+    blocks = [shard(x, devices, torch.int32) for x in (qa, qs, ta, ts, qlen, tlen)]
+    qcs = [None] * len(devices) if qc is None else shard(qc, devices, torch.int32)
+    outs = []
+    for k, dev in enumerate(devices):
+        outs.append(sw_forward_cuda(
+            *(b[k] for b in blocks), on_device(saa, dev).float(), on_device(s3d, dev).float(),
+            go=go, ge=ge, w_aa=w_aa, w_3di=w_3di, gap_window=gap_window, ungapped=ungapped,
+            qc=qcs[k]))
+        if dev.type == "cuda" and outs[-1][0].numel():
+            SHARDED_LAUNCHES["ungapped" if ungapped else "gapped"] += 1
+    return tuple(gather([o[i] for o in outs], devices[0]) for i in range(3))
 
 
 def launch_with(lib: ctypes.CDLL, qa, qs, ta, ts, qlen, tlen, saa, s3d, go, ge, w_aa, w_3di,

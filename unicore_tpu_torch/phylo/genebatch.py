@@ -13,10 +13,10 @@ CLV products as phylo/likelihood.py's, flattened into one batch.
 The accept/stop logic per gene is TreeSearch.optimize's (its full-batch
 branch; genes of 48 taxa or more take the per-gene incremental path in
 TreeEngine.infer), so lockstep results match the solo search.  Branch
-lengths are optimized per gene, as in the JAX package.  Not ported: the
-multi-device sharding of the gene axis (`_loglik_multi_sharded`,
-`_auto_mesh`), and the search bookkeeping that nothing reads
-(`TreeSearch.visited`, `_final`).
+lengths are optimized per gene, as in the JAX package.  Where
+parallel.mesh.local_mesh gives a mesh (several cards), each call splits
+its genes over the devices (`_loglik_multi_sharded`).  Not ported: the
+search bookkeeping that nothing reads (`TreeSearch.visited`, `_final`).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from unicore_tpu_torch.parallel import mesh as mesh_mod
 from unicore_tpu_torch.phylo.likelihood import (
     LikelihoodEngine,
     _blockdiag_pmats,
@@ -68,8 +69,36 @@ def _loglik_multi_impl(children_gk, blens_gk, tips_g, weights_g, eigvals_g, U_g,
     return (log_site * weights_g[:, None, :]).sum(-1)
 
 
-# CLV bytes one _loglik_multi_impl call may hold (the budget of the
-# likelihood engine's candidate batches)
+@torch.no_grad()
+def _loglik_multi_sharded(mesh, children_gk, blens_gk, tips_g, weights_g, model_g: dict) -> np.ndarray:
+    """`_loglik_multi_impl` with the GENE axis split over the devices of
+    `mesh`'s first axis (unicore_tpu.phylo.genebatch._loglik_multi_sharded):
+    every input (candidates, tips, weights and the per-gene model tensors
+    of `model_g`, keyed as _loglik_multi_impl's arguments) rides the gene
+    axis, so each device evaluates its own genes.  G is padded to a
+    multiple of the shards by repeating gene 0; returns (G, K) on the
+    host, at full float32."""
+    devices = mesh_mod.shard_devices(mesh)
+    G = children_gk.shape[0]
+    Gd = mesh_mod.round_up(G, len(devices))
+
+    def split(x, dtype):
+        return mesh_mod.shard(mesh_mod.pad_rows(x, Gd), devices, dtype)
+
+    names = sorted(model_g)
+    blocks = [split(children_gk, torch.int64), split(blens_gk, torch.float32),
+              split(tips_g, torch.float32), split(weights_g, torch.float32)]
+    blocks += [split(model_g[k], torch.float32) for k in names]
+    outs = []
+    with full_fp32():
+        for k in range(len(devices)):
+            c, b, t, w, *m = (x[k] for x in blocks)
+            outs.append(_loglik_multi_impl(c, b, t, w, **dict(zip(names, m))))
+    return mesh_mod.gather(outs).numpy()[:G]
+
+
+# CLV bytes one _loglik_multi_impl call may hold on one device (the budget
+# of the likelihood engine's candidate batches)
 GENE_BATCH_BYTES = 4e9
 
 
@@ -77,27 +106,33 @@ def loglik_multi(engines: List[LikelihoodEngine], children_gk: np.ndarray,
                  blens_gk: np.ndarray) -> np.ndarray:
     """(G, K) log-likelihoods of each engine's K candidate topologies, in
     calls over as many genes as keep their CLV buffers under
-    GENE_BATCH_BYTES; at full float32 (`full_fp32`), without autograd.
-    Counters: `phylo.candidates` (G * K), `phylo.gene_batches` (calls of
-    _loglik_multi_impl)."""
+    GENE_BATCH_BYTES per device; at full float32 (`full_fp32`), without
+    autograd.  Where parallel.mesh.local_mesh gives a mesh, each call
+    splits its genes over it (`_loglik_multi_sharded`).  Counters:
+    `phylo.candidates` (G * K), `phylo.gene_batches` (calls)."""
     e0 = engines[0]
     G, K = children_gk.shape[:2]
     P = int(e0.tips.shape[1])
     C = int(e0._mp["rates"].shape[0])
-    per_gene = K * (2 * e0.n - 1) * P * C * 20 * 4
-    step = max(1, int(GENE_BATCH_BYTES // max(per_gene, 1)))
-    profiling.add_counter("phylo.candidates", G * K)
     dev = e0.device
+    mesh = mesh_mod.local_mesh(dev)
+    per_gene = K * (2 * e0.n - 1) * P * C * 20 * 4
+    step = max(1, int(GENE_BATCH_BYTES // max(per_gene, 1))) * mesh_mod.n_shards(mesh)
+    profiling.add_counter("phylo.candidates", G * K)
     outs = []
     with full_fp32(), torch.no_grad():
         for g0 in range(0, G, step):
             gs = engines[g0:g0 + step]
             mp = {k + "_g": torch.stack([e._mp[k] for e in gs]) for k in _MODEL_KEYS}
-            out = _loglik_multi_impl(
-                torch.as_tensor(np.asarray(children_gk[g0:g0 + step], np.int64), device=dev),
-                torch.as_tensor(np.asarray(blens_gk[g0:g0 + step], np.float32), device=dev),
-                torch.stack([e.tips for e in gs]), torch.stack([e.w for e in gs]), **mp)
-            outs.append(out.cpu().numpy())
+            cb = np.asarray(children_gk[g0:g0 + step], np.int64)
+            bb = np.asarray(blens_gk[g0:g0 + step], np.float32)
+            tips, w = torch.stack([e.tips for e in gs]), torch.stack([e.w for e in gs])
+            if mesh is not None:
+                outs.append(_loglik_multi_sharded(mesh, cb, bb, tips, w, mp))
+            else:
+                outs.append(_loglik_multi_impl(
+                    torch.as_tensor(cb, device=dev), torch.as_tensor(bb, device=dev),
+                    tips, w, **mp).cpu().numpy())
             profiling.add_counter("phylo.gene_batches", 1)
     return np.concatenate(outs)
 

@@ -27,8 +27,10 @@ and flip NNI decisions.  The batched evaluators run without autograd, on
 CLV buffers written in place; branch-length optimization differentiates
 a separate single-tree pass whose CLVs live in a Python list, because an
 in-place write into a tensor a later step reads would break the backward
-pass.  The multi-device branch of the JAX engine (`_auto_mesh`,
-`_run_batch_sharded`) is not ported: the engine runs on one device.
+pass.  Where parallel.mesh.local_mesh gives a mesh (several cards), or the
+caller passes one, `loglik_batch` and `site_loglik_batch` split their
+candidate batches over its devices (`_run_batch_sharded`); the engine
+keeps one copy of its tips and model per device.
 
 Site columns are compressed to unique patterns with multiplicities
 before upload (classic aliasing), typically a 2-10x site reduction.
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from unicore_tpu_torch.alphabets import encode_aa
+from unicore_tpu_torch.parallel import mesh as mesh_mod
 from unicore_tpu_torch.phylo.models import SubstModel
 from unicore_tpu_torch.phylo.newick import Node
 from unicore_tpu_torch.runtime import device as device_mod
@@ -310,6 +313,7 @@ def subsampled_engine(eng, k: int = SEARCH_PATTERN_CAP, seed: int = 12345):
     sub.w = torch.as_tensor(sub.weights, device=eng.device)
     sub.model = eng.model
     sub._mp = eng._mp
+    sub._replicas = {}
     return sub
 
 
@@ -460,6 +464,31 @@ def _loglik_incremental_impl(cl, cr, lb, rb, lsrc, rsrc, base_buf, base_logscale
     return (log_site * weights).sum(-1)
 
 
+@_in_full_fp32
+@torch.no_grad()
+def _run_batch_sharded(impl, mesh, cb, bb, replica, pattern_chunk: int) -> np.ndarray:
+    """A batched topology evaluator data-parallel over `mesh`'s first
+    axis (unicore_tpu.phylo.likelihood._run_batch_sharded).
+
+    cb / bb (arrays) split on the candidate axis, one block per device;
+    `replica(device)` gives the replicated inputs (tips[, weights], mp) on
+    that device.  The batch is padded (repeat of row 0) to a multiple of
+    the shards and sliced back; every shard is queued before any is read.
+    Each shard computes its candidates alone, so the results equal the
+    single-device call's up to the float order of a batch of another
+    size (the tests hold them to rtol 2e-5, atol 1e-3)."""
+    devices = mesh_mod.shard_devices(mesh)
+    B = cb.shape[0]
+    Bd = mesh_mod.round_up(B, len(devices))
+    cbs = mesh_mod.shard(mesh_mod.pad_rows(np.asarray(cb, np.int64), Bd), devices)
+    bbs = mesh_mod.shard(mesh_mod.pad_rows(np.asarray(bb, np.float32), Bd), devices)
+    outs = []
+    for dev, c, b in zip(devices, cbs, bbs):
+        *reps, mp = replica(dev)
+        outs.append(impl(c, b, *reps, mp, pattern_chunk))
+    return mesh_mod.gather(outs).numpy()[:B]
+
+
 class LikelihoodEngine:
     """Holds device-resident alignment tensors + model; evaluates trees.
 
@@ -508,6 +537,26 @@ class LikelihoodEngine:
 
         self._mp = dict(eigvals=f32(model.eigvals), U=f32(model.U), Uinv=f32(model.Uinv),
                         pi=f32(model.pi), rates=f32(rates), props=f32(props))
+        self._replicas = {}
+
+    def _replica(self, device: torch.device, pchunk: int):
+        """(tips, weights, mp) padded to `pchunk` on `device`, copied there
+        once per model (the replicated inputs of a sharded batch)."""
+        key = (device, pchunk)
+        if key not in self._replicas:
+            tips, w = self.tips, self.w
+            if pchunk:
+                tips, w = _pad_patterns(tips, w, pchunk)
+            self._replicas[key] = (tips.to(device), w.to(device),
+                                   {k: v.to(device) for k, v in self._mp.items()})
+        return self._replicas[key]
+
+    def _mesh(self, mesh):
+        """`mesh` as the batched entries read it: None = local_mesh (auto),
+        False = one device."""
+        if mesh is None:
+            return mesh_mod.local_mesh(self.device)
+        return None if mesh is False else mesh
 
     def _batch(self, children_batch, blens_batch):
         return (torch.as_tensor(np.asarray(children_batch, np.int64), device=self.device),
@@ -528,26 +577,35 @@ class LikelihoodEngine:
     # -- single tree (routed through the batched entry) -------------------
     def loglik(self, children: np.ndarray, blens: np.ndarray) -> float:
         return float(self.loglik_batch(
-            np.asarray(children)[None], np.asarray(blens)[None])[0])
+            np.asarray(children)[None], np.asarray(blens)[None], mesh=False)[0])
 
     # -- batched topologies (NNI rounds) --------------------------------
     @_in_full_fp32
     @torch.no_grad()
     def loglik_batch(
         self, children_batch: np.ndarray, blens_batch: np.ndarray,
-        chunk: int = 0,
+        chunk: int = 0, mesh=None,
     ) -> np.ndarray:
         """(B,) log-likelihoods of a topology batch, `chunk` candidates per
-        call (0: the largest that keeps the CLV stack under ~4 GB)."""
+        call (0: the largest that keeps the CLV stack under ~4 GB, times
+        the number of shards).  `mesh`: None = local_mesh (several cards),
+        False = one device, or a parallel.mesh.Mesh to split the
+        candidates over."""
+        mesh = self._mesh(mesh)
         pchunk = self._pattern_chunk()
         tips, w = self.tips, self.w
         if pchunk:
             tips, w = _pad_patterns(tips, w, pchunk)
-        chunk = chunk or self._tree_chunk(pchunk, 16)
+        chunk = chunk or self._tree_chunk(pchunk, 16) * mesh_mod.n_shards(mesh)
         B = children_batch.shape[0]
         profiling.add_counter("phylo.candidates", B)
         outs = []
         for s0 in range(0, B, chunk):
+            if mesh is not None:
+                outs.append(_run_batch_sharded(
+                    _loglik_batch_impl, mesh, children_batch[s0:s0 + chunk],
+                    blens_batch[s0:s0 + chunk], lambda d: self._replica(d, pchunk), pchunk))
+                continue
             cb, bb = self._batch(children_batch[s0:s0 + chunk], blens_batch[s0:s0 + chunk])
             outs.append(_loglik_batch_impl(cb, bb, tips, w, self._mp, pchunk).cpu().numpy())
         return np.concatenate(outs)
@@ -555,24 +613,33 @@ class LikelihoodEngine:
     # -- per-pattern site log-likelihoods (for RELL bootstrap) ----------
     def site_loglik(self, children: np.ndarray, blens: np.ndarray) -> np.ndarray:
         return self.site_loglik_batch(
-            np.asarray(children)[None], np.asarray(blens)[None])[0]
+            np.asarray(children)[None], np.asarray(blens)[None], mesh=False)[0]
 
     @_in_full_fp32
     @torch.no_grad()
     def site_loglik_batch(
         self, children_batch: np.ndarray, blens_batch: np.ndarray, chunk: int = 0,
+        mesh=None,
     ) -> np.ndarray:
         """(B, P) per-pattern log-likelihoods for a topology batch
-        (RELL/UFBoot candidate scoring)."""
+        (RELL/UFBoot candidate scoring); `chunk` and `mesh` as in
+        loglik_batch."""
+        mesh = self._mesh(mesh)
         pchunk = self._pattern_chunk()
         tips = self.tips
         if pchunk:
             tips, _ = _pad_patterns(tips, self.w, pchunk)
-        chunk = chunk or self._tree_chunk(pchunk, 32)
+        chunk = chunk or self._tree_chunk(pchunk, 32) * mesh_mod.n_shards(mesh)
         B = children_batch.shape[0]
         profiling.add_counter("phylo.candidates", B)
         outs = []
         for s0 in range(0, B, chunk):
+            if mesh is not None:
+                outs.append(_run_batch_sharded(
+                    _site_loglik_batch_impl, mesh, children_batch[s0:s0 + chunk],
+                    blens_batch[s0:s0 + chunk],
+                    lambda d: (self._replica(d, pchunk)[0], self._replica(d, pchunk)[2]), pchunk))
+                continue
             cb, bb = self._batch(children_batch[s0:s0 + chunk], blens_batch[s0:s0 + chunk])
             outs.append(_site_loglik_batch_impl(cb, bb, tips, self._mp, pchunk).cpu().numpy())
         # pattern padding adds trailing zero-weight columns; slice back
