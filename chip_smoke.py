@@ -216,6 +216,28 @@ failure, and no phase is skipped:
        the whole batch.
    9f. The native featurizer on phase 4's 2,400 sequences, bit-identical
        to its plain version; both timed.
+10. ProstT5's training step (parallel/sharding.py), one sub-phase after
+   another, each model freed before the next; tolerances those of
+   tests/test_torch_train.py (LOSS_RTOL, GRAD_RTOL and its Adam rule):
+   10a. The full-width float32 step (T5Config(): 24 layers, 1.2 B
+       parameters drawn on the card from TRAIN_SEED) unsharded on a
+       seeded 4 x 512 batch of ragged rows: a warm-up Adam step, then
+       TRAIN_STEPS timed ones at lr TRAIN_LR (CUDA events); every loss
+       finite, the last below the first.  Prints ms per step, the bound
+       (3 x the forward's flops over 67 TFLOP/s FP32; parameters and
+       Adam's moments read and written once over 3.35 TB/s), peak memory
+       and tokens per second.
+   10b. The same from the same parameters and batch at tp = TRAIN_TP on a
+       logical mesh of the card: losses within LOSS_RTOL of 10a's; the
+       warm-up gradients of blocks 0 and 23's wo and the head's two
+       convolutions within GRAD_RTOL of max|g|, their parameters after
+       the steps under the Adam rule.
+   10c. 2 of 24 layers at full width, one step at (dp, tp) = (2, 2) on a
+       logical mesh of the card against the unsharded model on the CPU
+       (2 x 128 tokens): the loss, every gradient, every update.
+   10d. graft_entry.dryrun_multichip(4) on a logical mesh of the card.
+   10e. make_sharded_predict at tp = TRAIN_TP on 8b's bf16 checkpoint:
+       3Di against one device's under the tie rule.
 
 Order of the run: phase 5's CPU run (6b's CPU run beside its easy-core;
 then three sides, each in one process: 7c and 6d; tree -T raxml-ng and
@@ -225,14 +247,14 @@ and 3d, then 6a and 6e (in a thread of their own) beside phase 5's CUDA
 run (6b beside its easy-core; then two sides, each in one process:
 raxml-ng, 7c and 6d; the rest and 7b), all on those two.  Once it has
 ended, phase 3 and the times of phases 3b, 3c and 3d, phase 4, 7a and 7d
-run with nothing beside them, then 6c, 8a, 8b and 9.  Each phase's start and end on
+run with nothing beside them, then 6c, 8a, 8b, 9 and 10.  Each phase's start and end on
 the script's clock is printed as a "[clock]" line.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel mode: launches in phase 4 and 7a, times and bound at (512, 512),
 the main path's most common bucket; 6a prints the cascade's launches;
-phase 8 adds no kernel: the ProstT5 model is PyTorch ops; a row for the
-sharded route: 9d's launches, 9a's times and bound);
+phases 8 and 10 add no kernel: the ProstT5 model is PyTorch ops; a row
+for the sharded route: 9d's launches, 9a's times and bound);
 the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits non-zero before
 printing any result.  Nothing here imports JAX or unicore_tpu.
@@ -341,6 +363,17 @@ SHARD_LL_RTOL, SHARD_LL_ATOL = 2e-5, 1e-3  # 9c: sharded vs single (tests/test_s
 SHARD_SPECIES = 2          # 9d: phase 4's first 2 x 120 sequences through align_pairs
 NW_MATRICES_9D = 40        # 9d: score matrices through nw_align_batch
 DIST_RANKS = 2             # 9e
+# phase 10: ProstT5's training step (parallel/sharding.py) at ProtT5-XL's width
+TRAIN_SEED = 20261018
+TRAIN_BATCH = (4, 512)     # 10a/10b: B x L, ragged rows
+TRAIN_STEPS = 3            # ... timed Adam steps after one warm-up step
+TRAIN_LR = 1e-4
+TRAIN_TP = 4               # 10b and 10e: tp over a logical mesh of the card
+CROSS_TRAIN = (2, 2, 128)  # 10c: layers, B, L at (dp, tp) = (2, 2), CUDA against the CPU
+# tests/test_torch_train.py's tolerances, sharded against unsharded: the
+# loss, each gradient tensor (of max|g_ref|), the Adam updates (its rule)
+LOSS_RTOL, GRAD_RTOL, UPDATE_RTOL, STRONG, GRAD_NOISE = 1e-5, 1e-4, 1e-3, 1e-3, 1e-6
+RELU_FLIP_L2 = 1e-2        # gradients below a relu, of their norm (check_grads)
 _CLOCK = [time.perf_counter()]  # the script's clock; main() restarts it
 
 
@@ -2368,6 +2401,320 @@ def phase_multi_device(ctx, work, phylo):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 10: ProstT5's training step, tensor and sequence parallelism
+# ---------------------------------------------------------------------------
+
+def draw_train_state(cfg, seed, device):
+    """A float32 ProstT5 state at `cfg`'s geometry drawn on `device` from a
+    seeded torch.Generator, as synthetic.prostt5_hf_tensors draws: products
+    and convolutions fan-in scaled, RMSNorm weights 1 + 0.1 N(0, 1),
+    embedding N(0, 1), rel_bias 0.5 N(0, 1), conv biases 0.1 N(0, 1)."""
+    import torch
+
+    from unicore_tpu_torch.models.prostt5 import ProstT5
+
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in ProstT5(cfg, cfg.ff == "gated-gelu").state_dict().items()}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = {}
+    for name, shape in shapes.items():
+        x = torch.randn(*shape, generator=gen, device=device)
+        if name.endswith("ln1.weight") or name.endswith("ln2.weight") or name.endswith("final_ln.weight"):
+            x = x.mul_(0.1).add_(1.0)
+        elif name.endswith("bias"):
+            x = x.mul_(0.1)
+        elif name == "encoder.rel_bias.weight":
+            x = x.mul_(0.5)
+        elif name != "encoder.embed.weight":
+            x = x.mul_(float(np.prod(shape[1:])) ** -0.5)
+        state[name] = x
+    return state
+
+
+def train_batch(B, L, seed):
+    """(tokens, mask, labels): framed random proteins of ragged lengths (the
+    first row full), labels uniform over the 20 3Di states."""
+    from unicore_tpu_torch.models import prostt5 as P
+
+    rng = np.random.RandomState(seed)
+    lengths = [L - 2] + list(rng.randint(L // 4, L - 1, B - 1))
+    tokens, mask = P.frame_batch([_random_aa(rng, n) for n in lengths], L, multiple=1)
+    return tokens, mask, rng.randint(0, 20, (B, L))
+
+
+def train_bound(cfg, n_params, B, L):
+    """(bound_ms, ops_ms, bytes_ms, flops) of one Adam step on a (B, L)
+    batch: 3 x the forward's product and convolution flops (the backward
+    twice the forward) over 67 TFLOP/s FP32; the bytes of the step's
+    inputs read once and outputs written once (parameters and Adam's two
+    moments, 12 B per parameter each way; tokens, mask and labels) over
+    3.35 TB/s."""
+    D, F, H, dk = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.d_kv
+    ffn = 3 if cfg.ff == "gated-gelu" else 2
+    per_layer = 2 * B * L * (4 * D * H * dk + ffn * D * F) + 4 * B * H * L * L * dk
+    head = 2 * B * L * cfg.cnn_kernel * (D * cfg.cnn_hidden + cfg.cnn_hidden * cfg.n_classes)
+    flops = 3 * (cfg.n_layers * per_layer + head)
+    nbytes = 24 * n_params + B * L * (8 + 1 + 8)
+    ops_ms, bytes_ms = flops / FP32_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms, flops
+
+
+ABOVE_RELUS = ("head.conv2.weight", "head.conv2.bias")  # no relu between these and the loss
+
+
+def check_updates(p0, ref, got, g_ref, steps, what):
+    """tests/test_torch_train.py's Adam rule on host tensors {name: tensor}:
+    updates u = p - p0 of `got` against `ref`, every entry within 2 lr
+    steps, entries with |g_ref| >= STRONG max|g_ref| within UPDATE_RTOL
+    |u_ref| plus per step one float32 spacing of the parameter and lr
+    GRAD_NOISE max|g_ref| / |g_ref|.  Returns the largest share of that
+    tolerance taken."""
+    worst = 0.0
+    for k in p0:
+        a0, r, gt, g = (np.asarray(x[k].float().numpy(), np.float64) for x in (p0, ref, got, g_ref))
+        u_ref, d = r - a0, np.abs((gt - a0) - (r - a0))
+        check(d.max() <= 2 * TRAIN_LR * steps, f"{what}: {k} moved {d.max():.3g} from the reference")
+        strong = np.abs(g) >= STRONG * np.abs(g).max()
+        spacing = np.spacing(np.maximum(np.abs(a0), np.abs(r)).astype(np.float32))
+        turn = TRAIN_LR * GRAD_NOISE * np.abs(g).max() / np.maximum(np.abs(g), 1e-30)
+        share = (d / (UPDATE_RTOL * np.abs(u_ref) + steps * (spacing + turn)))[strong].max()
+        check(share <= 1, f"{what}: {k}'s Adam update at {share:.3g} of the tolerance")
+        worst = max(worst, float(share))
+    return worst
+
+
+def grad_errors(ref, got):
+    """{name: (max|got - ref| / max|ref|, |got - ref| / |ref|)}."""
+    out = {}
+    for k in ref:
+        a, b = ref[k].double(), got[k].double()
+        out[k] = (float((b - a).abs().max() / a.abs().max()), float((b - a).norm() / a.norm()))
+    return out
+
+
+def check_grads(ref, got, what):
+    """Gradients of `got` against `ref`: the tensors no relu stands between
+    and the loss (ABOVE_RELUS) within GRAD_RTOL of max|g|, every other
+    within RELU_FLIP_L2 of its norm.  Where a relu unit's input is within
+    float noise of 0, two float32 sums of it take different derivatives
+    (0 or 1) and the gradients below it jump by one token's term: at 24
+    layers, tp = 4 against tp = 1 on the CPU (d_model 256), up to 1.1e-2
+    of max|g| and 3.1e-3 of the norm, against 2e-6 for the others.
+    Returns the largest error of each kind and a line per tensor kept."""
+    err = grad_errors(ref, got)
+    hi = max(e[0] for k, e in err.items() if k in ABOVE_RELUS)
+    below = {k: e for k, e in err.items() if k not in ABOVE_RELUS}
+    lines = "; ".join(f"{k} {e[0]:.3g} of max, {e[1]:.3g} of norm" for k, e in err.items()) if len(err) < 10 else ""
+    check(hi <= GRAD_RTOL, f"{what}: gradients above the relus at {hi:.3g} of max|g| (limit {GRAD_RTOL}); {lines}")
+    lo = max((e[1] for e in below.values()), default=0.0)
+    check(lo <= RELU_FLIP_L2, f"{what}: gradients below a relu at {lo:.3g} of their norm (limit {RELU_FLIP_L2}); "
+          f"{lines}")
+    return hi, lo, max((e[0] for e in below.values()), default=0.0), lines
+
+
+def timed_steps(model, mesh, cfg, batch, keep):
+    """One warm-up Adam step then TRAIN_STEPS timed ones (CUDA events
+    around each; the step ends reading the loss) on `model`.  Returns
+    (losses, ms per timed step, peak GiB, the warm-up step's gradients of
+    `keep` and their parameters after it, on the host)."""
+    import torch
+
+    from unicore_tpu_torch.parallel import sharding
+
+    step, init_opt = sharding.make_train_step(cfg, mesh, lr=TRAIN_LR)
+    opt = init_opt(model)
+
+    def read(grad):
+        if mesh is not None:
+            return sharding.gather_state(model, grad=grad, names=keep)
+        named = dict(model.named_parameters())
+        return {k: (named[k].grad if grad else named[k]).detach().cpu().clone() for k in keep}
+
+    losses, ms = [step(model, opt, *batch)], []
+    grads, after = read(True), read(False)
+    for _ in range(TRAIN_STEPS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        losses.append(step(model, opt, *batch))
+        e.record()
+        e.synchronize()
+        ms.append(s.elapsed_time(e))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return losses, ms, peak, grads, after
+
+
+def phase_train(ctx):
+    """Phases 10a and 10b: ProstT5's training step at ProtT5-XL's full width
+    (T5Config(): 24 layers, 1.2 B float32 parameters, drawn on the card
+    from TRAIN_SEED) on a seeded TRAIN_BATCH batch of ragged rows, first
+    unsharded (10a), then from the same parameters and batch at tp =
+    TRAIN_TP on a logical mesh of the card (10b), each freed before the
+    next: a warm-up Adam step and TRAIN_STEPS timed ones at TRAIN_LR.
+    Every loss finite and the last below the first.  10b against 10a:
+    the warm-up loss within LOSS_RTOL, the warm-up gradients of the
+    head, the final RMSNorm and blocks 0 and 23's wo as check_grads
+    holds them, and the parameters of the head's second convolution after
+    the warm-up step under the Adam rule.  The later losses part (Adam's
+    lr sign(g) step turns gradient noise into lr-sized moves, and a deep
+    stack amplifies them; JAX's own tp = 4 step parts from its unsharded
+    one alike) and are printed.  Prints ms per step, the bound, peak
+    memory and tokens per second."""
+    import torch
+
+    from unicore_tpu_torch.models import prostt5 as P
+    from unicore_tpu_torch.parallel import sharding
+    from unicore_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, dev = P.T5Config(), ctx["dev"]
+    B, L = TRAIN_BATCH
+    batch = train_batch(B, L, TRAIN_SEED)
+    keep = ["head.conv1.weight", "head.conv1.bias", *ABOVE_RELUS, "encoder.final_ln.weight",
+            "encoder.blocks.0.wo.weight", f"encoder.blocks.{cfg.n_layers - 1}.wo.weight"]
+    runs = {}
+    for tp in (1, TRAIN_TP):
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = draw_train_state(cfg, TRAIN_SEED, dev)
+        p0 = {k: state[k].cpu().clone() for k in ABOVE_RELUS}
+        n_params = sum(v.numel() for v in state.values())
+        if tp == 1:
+            mesh, model = None, P.build_model(cfg, state, dev, trainable=True)
+        else:
+            mesh = make_mesh(devices=[dev] * tp, dp=1, tp=tp)
+            model = sharding.shard_params(state, mesh)
+        del state
+        losses, ms, peak, grads, after = timed_steps(model, mesh, cfg, batch, keep)
+        del model
+        torch.cuda.empty_cache()
+        runs[tp] = dict(losses=losses, grads=grads, after=after)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"10: losses at tp = {tp}: {losses}")
+        bound, ops_ms, bytes_ms, flops = train_bound(cfg, n_params, B, L)
+        step_ms = float(np.median(ms))
+        name = "10a" if tp == 1 else "10b"
+        log(f"[phase {name}] Adam step at full width ({n_params} float32 parameters, {cfg.n_layers} layers), "
+            f"B x L = {B} x {L} ({int(batch[1].sum())} unmasked tokens), tp = {tp}"
+            f"{' on a logical mesh of the card' if tp > 1 else ''}: {step_ms:.2f} ms per step, the median of "
+            f"{', '.join(f'{m:.2f}' for m in ms)}; bound {bound:.2f} ms ({flops / 1e12:.2f} TFLOP over "
+            f"{FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s FP32: {ops_ms:.2f} ms; bytes over 3.35 TB/s: {bytes_ms:.2f} ms), "
+            f"{bound / step_ms:.1%} of it; {B * L / step_ms * 1e3:.0f} tokens/s "
+            f"({batch[1].sum() / step_ms * 1e3:.0f} unmasked); peak {peak:.2f} GiB; losses "
+            f"{', '.join(f'{x:.6f}' for x in losses)}; {time.perf_counter() - t0:.1f} s ({ctx['smi']})")
+    a, b = runs[1], runs[TRAIN_TP]
+    rel = [abs(x / y - 1) for x, y in zip(b["losses"], a["losses"])]
+    check(rel[0] <= LOSS_RTOL, f"10b: warm-up loss {rel[0]:.3g} from 10a's (limit {LOSS_RTOL})")
+    hi, lo, lo_max, lines = check_grads(a["grads"], b["grads"], "10b")
+    share = check_updates(p0, a["after"], b["after"], a["grads"], 1, "10b")
+    log(f"[phase 10b] tp = {TRAIN_TP} against 10a: warm-up loss {rel[0]:.3g} apart (limit {LOSS_RTOL}); warm-up "
+        f"gradients above the relus at {hi:.3g} of max|g|, below at most {lo:.3g} of their norm ({lo_max:.3g} of "
+        f"their max): {lines}; updates of the warm-up step above the relus at {share:.3g} of the Adam rule's "
+        f"tolerance; later losses apart by {', '.join(f'{x:.3g}' for x in rel[1:])}")
+
+
+def phase_train_cross(ctx):
+    """Phase 10c: CROSS_TRAIN's layers of 24 at full width, one Adam step at
+    (dp, tp) = (2, 2) on a logical mesh of the card against the unsharded
+    model on the CPU, from the same parameters and a cut batch: the loss
+    within LOSS_RTOL, the gradients as check_grads holds them, the
+    head's second convolution under the Adam rule and every parameter
+    within 2 lr of the CPU's."""
+    import torch
+
+    from unicore_tpu_torch.models import prostt5 as P
+    from unicore_tpu_torch.parallel import sharding
+    from unicore_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    n_layers, B, L = CROSS_TRAIN
+    cfg = dataclasses.replace(P.T5Config(), n_layers=n_layers)
+    batch = train_batch(B, L, TRAIN_SEED + 1)
+    state = {k: v.cpu() for k, v in draw_train_state(cfg, TRAIN_SEED + 1, ctx["dev"]).items()}
+    mesh = make_mesh(devices=[ctx["dev"]] * 4, dp=2, tp=2)
+    sharded = sharding.shard_params(state, mesh)
+    cpu = P.build_model(cfg, {k: v.clone() for k, v in state.items()}, "cpu", trainable=True)
+    out = {}
+    for name, model, m in (("cuda", sharded, mesh), ("cpu", cpu, None)):
+        step, init_opt = sharding.make_train_step(cfg, m, lr=TRAIN_LR)
+        loss = step(model, init_opt(model), *batch)
+        if m is None:
+            named = dict(model.named_parameters())
+            grads = {k: p.grad for k, p in named.items()}
+            after = {k: p.detach() for k, p in named.items()}
+        else:
+            grads, after = sharding.gather_state(model, grad=True), sharding.gather_state(model)
+        out[name] = (loss, grads, after)
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = out["cuda"], out["cpu"]
+    check(abs(l_gpu / l_cpu - 1) <= LOSS_RTOL, f"10c: loss {l_gpu} on the card, {l_cpu} on the CPU")
+    hi, lo, lo_max, _ = check_grads(g_cpu, g_gpu, "10c")
+    share = check_updates({k: state[k] for k in ABOVE_RELUS}, p_cpu, p_gpu, g_cpu, 1, "10c")
+    moved = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    check(moved <= 2 * TRAIN_LR, f"10c: a parameter {moved:.3g} from the CPU's after one step")
+    del sharded
+    torch.cuda.empty_cache()
+    log(f"[phase 10c] {n_layers} of 24 layers at full width, B x L = {B} x {L}, (dp, tp) = (2, 2) on the card "
+        f"against the CPU: loss {l_gpu:.6f} and {l_cpu:.6f} ({abs(l_gpu / l_cpu - 1):.3g} apart); gradients above "
+        f"the relus at {hi:.3g} of max|g|, the {len(g_cpu) - len(ABOVE_RELUS)} below at most {lo:.3g} of their norm "
+        f"({lo_max:.3g} of their max); Adam updates above the relus at {share:.3g} of the tolerance, every "
+        f"parameter within {moved:.3g} of the CPU's; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_tp_predict(ctx, work):
+    """Phase 10e: make_sharded_predict at tp = TRAIN_TP on a logical mesh of
+    the card, 8b's bf16 checkpoint (2 of 24 layers at full width), on
+    8b's kind of sequences: 3Di against the unsharded model's under the
+    tie rule."""
+    import torch
+
+    from unicore_tpu_torch.alphabets import TDI_ALPHABET
+    from unicore_tpu_torch.models import prostt5 as P
+    from unicore_tpu_torch.parallel import sharding
+    from unicore_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(work, "prostt5_cross")  # phase 8b's checkpoint
+    cfg = P.infer_config(ckpt)
+    model = P.build_model(cfg, P.load_params(ckpt, cfg, dtype=torch.bfloat16), ctx["dev"])
+    rng = np.random.RandomState(12)
+    seqs = [_random_aa(rng, n) for n in rng.randint(30, 121, CROSS_PROSTT5_SEQS)]
+    toks, mask = P.frame_batch(seqs, P._bucket_len(max(map(len, seqs)) + 2))
+    tg, mg = torch.from_numpy(toks).to(ctx["dev"]), torch.from_numpy(mask).to(ctx["dev"])
+    lg = P.residue_logits(model, tg, mg).float().cpu().numpy()
+    run = sharding.make_sharded_predict(cfg, model, make_mesh(devices=[ctx["dev"]] * TRAIN_TP, dp=1, tp=TRAIN_TP))
+    got = run(toks, mask)
+    tdi = np.frombuffer(TDI_ALPHABET.encode(), np.uint8)
+
+    def strings(codes):
+        return [tdi[codes[r, 1:len(s) + 1]].tobytes().decode() for r, s in enumerate(seqs)]
+
+    n_diff, n_all, widest = check_3di_ties(seqs, strings(lg.argmax(-1)), strings(got), lg,
+                                           f"10e: tp = {TRAIN_TP} predict vs one device")
+    del model, run
+    torch.cuda.empty_cache()
+    log(f"[phase 10e] make_sharded_predict at tp = {TRAIN_TP} (bf16, 2 of 24 layers at full width) against one "
+        f"device: {n_all - n_diff} of {n_all} letters equal (widest differing gap {widest:.3g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_training(ctx, work):
+    """Phase 10: 10a and 10b (phase_train), 10c, the port's dry run
+    `graft_entry.dryrun_multichip(4)` on a logical mesh of the card (10d),
+    then 10e, one after another."""
+    from unicore_tpu_torch import graft_entry
+
+    with span("phase 10a, 10b"):
+        phase_train(ctx)
+    with span("phase 10c"):
+        phase_train_cross(ctx)
+    with span("phase 10d"):
+        out = graft_entry.dryrun_multichip(LOGICAL_SHARDS, devices=[ctx["dev"]] * LOGICAL_SHARDS)
+        log(f"[phase 10d] graft_entry.dryrun_multichip({LOGICAL_SHARDS}) on a logical mesh of the card: "
+            f"dp = {out['dp']}, tp = {out['tp']}, loss {out['loss']:.6f}")
+    with span("phase 10e"):
+        phase_tp_predict(ctx, work)
+
+
 def phase6_op_times(ctx, msa_files):
     """The slice's new PyTorch device work timed alone (phase 6c's end):
     one canopy gram at the size of 6a's first chunk (2,048 bags of 2,048
@@ -2563,6 +2910,8 @@ def main() -> int:
             phase_prostt5_cross(ctx, work)
         with span("phase 9"):
             sharded = phase_multi_device(ctx, work, inputs["phylo"])
+        with span("phase 10"):
+            phase_training(ctx, work)
     finally:
         stop_cli_runs()
         shutil.rmtree(work, ignore_errors=True)

@@ -2,9 +2,10 @@
 inference (parallel/sharding.py, ProstT5Engine._dp_setup) against the
 JAX package's, on the CPU: `factor_mesh` equal on a grid, `make_mesh`
 over 8 CPU devices shaped as JAX's over its 8 virtual ones, and
-float32 3Di codes of the sharded predict (tp = 1) and of the engine with
-local_mesh patched to 4 CPU shards equal to JAX's under the tie rule
-(torch_port_helpers.assert_same_3di)."""
+float32 3Di codes of the sharded predict (tp = 1 and tp = 2) and of the
+engine with local_mesh patched to 4 CPU shards equal to JAX's under the
+tie rule (torch_port_helpers.assert_same_3di).  tests/test_torch_train.py
+holds the rest of parallel/sharding.py."""
 
 import jax
 import jax.numpy as jnp
@@ -95,11 +96,28 @@ def test_sharded_predict_matches_jax():
     assert_same_3di(rows, rows, [TDI[g].tobytes().decode() for g in got], lambda i: logits[i], "float32")
 
 
-def test_sharded_predict_refuses_tensor_parallelism():
-    cfg = T.T5Config(d_model=64, d_kv=16, n_heads=4, d_ff=128, n_layers=1, cnn_hidden=8)
-    model = T.build_model(cfg, T.init_params(cfg, seed=1, dtype=torch.float32), "cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        sharding.make_sharded_predict(cfg, model, mesh_mod.make_mesh(devices=["cpu"] * 4, dp=2, tp=2))
+def test_sharded_predict_tensor_parallel_matches_jax():
+    """tp = 2 (the refusal of tensor parallelism is gone): the port's
+    sharded predict over a (2, 2) mesh of CPU shards against JAX's on
+    its (2, 2) mesh, float32, ragged masks, under the tie rule."""
+    cfg = J.T5Config(d_model=64, d_kv=16, n_heads=4, d_ff=128, n_layers=1, cnn_hidden=8)
+    params = J.init_params(cfg, seed=1, dtype=jnp.float32)
+    rng = np.random.RandomState(1)
+    tokens = rng.randint(0, 24, (8, 64)).astype(np.int32)
+    mask = np.ones((8, 64), bool)
+    mask[3:, 40:] = False
+    jm = jmesh.make_mesh(n_devices=4, dp=2, tp=2)
+    with jm:
+        ref = np.asarray(jsharding.make_sharded_predict(cfg, jm)(
+            jsharding.shard_params(params, jm), jnp.asarray(tokens), jnp.asarray(mask)))
+    tcfg = T.T5Config(d_model=64, d_kv=16, n_heads=4, d_ff=128, n_layers=1, cnn_hidden=8)
+    model = T.build_model(tcfg, prostt5_from_jax(params), "cpu")
+    got = sharding.make_sharded_predict(tcfg, model, mesh_mod.make_mesh(devices=["cpu"] * 4, dp=2, tp=2))(
+        tokens, mask)
+    assert got.shape == ref.shape
+    logits = np.asarray(J.residue_logits(params, cfg, jnp.asarray(tokens), jnp.asarray(mask)))
+    rows = [TDI[r].tobytes().decode() for r in ref]
+    assert_same_3di(rows, rows, [TDI[g].tobytes().decode() for g in got], lambda i: logits[i], "float32")
 
 
 def test_engine_predict_sharded_matches_jax(port_env, monkeypatch):  # noqa: F811

@@ -19,9 +19,10 @@ Rules of the port:
 - entry points run on CUDA unless the caller asks for the CPU
   (`UNICORE_TPU_TORCH_DEVICE=cpu`, see `runtime/device.py`).
 
-Ported so far: the `createdb` (mock 3Di backend), `cluster` and
-`profile` subcommands, and `tree` and `easy-core` up to the supermatrix
-(with -n/--no-inference; tree inference is not ported yet).
+Every module of `unicore_tpu` has its counterpart: the ten subcommands,
+the multi-device paths (`parallel/`), ProstT5 inference and training with
+tensor, sequence and data parallelism over one process's mesh
+(`parallel/sharding.py`), and `graft_entry.py` for `__graft_entry__.py`.
 """
 
 __version__ = "0.1.0"

@@ -18,6 +18,11 @@ numpy or JAX arrays) and returns the port's state, so both models
 compute with the same weights:
 
     build_model(cfg, prostt5_from_jax(jax_eng.params), "cpu")
+
+`prostt5_to_jax` goes the other way, from a state, a ProstT5 or a model
+sharded over a mesh (parallel/sharding.py, read back by `gather_state`),
+to JAX's tree of numpy float32 arrays: trained parameters, or gradients
+given as a state (`gather_state(model, grad=True)`).
 """
 
 from __future__ import annotations
@@ -56,3 +61,34 @@ def prostt5_from_jax(params: Mapping[str, Any]):
     tree["layers"] = [{k: leaf(v) for k, v in layer.items()} for layer in params["layers"]]
     tree["cnn"] = {k: leaf(v) for k, v in params["cnn"].items()}
     return state_from_tree(tree, dtype)
+
+
+def prostt5_to_jax(model) -> Dict[str, Any]:
+    """The port's ProstT5 parameters as JAX's tree (numpy float32, JAX's
+    (in, out) and (K, in, out) layouts) from a state, a
+    models/prostt5.py::ProstT5 or a parallel/sharding.py::ShardedProstT5."""
+    from unicore_tpu_torch.parallel.sharding import ShardedProstT5, gather_state
+
+    if isinstance(model, ShardedProstT5):
+        state = gather_state(model)
+    elif hasattr(model, "state_dict"):
+        state = model.state_dict()
+    else:
+        state = model
+
+    def a(name):
+        return state[name].detach().float().cpu().numpy()
+
+    layers: Dict[int, Dict[str, np.ndarray]] = {}
+    for name in state:
+        parts = name.split(".")
+        if parts[:2] == ["encoder", "blocks"]:
+            x = a(name)
+            layers.setdefault(int(parts[2]), {})[parts[3]] = x if x.ndim == 1 else np.ascontiguousarray(x.T)
+    return {
+        "embed": a("encoder.embed.weight"), "rel_bias": a("encoder.rel_bias.weight"),
+        "final_ln": a("encoder.final_ln.weight"),
+        "layers": [layers[i] for i in sorted(layers)],
+        "cnn": {"w1": np.ascontiguousarray(a("head.conv1.weight").transpose(2, 1, 0)), "b1": a("head.conv1.bias"),
+                "w2": np.ascontiguousarray(a("head.conv2.weight").transpose(2, 1, 0)), "b2": a("head.conv2.bias")},
+    }

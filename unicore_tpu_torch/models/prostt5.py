@@ -44,6 +44,13 @@ Where parallel.mesh.local_mesh gives a mesh (several cards), the engine
 predicts data-parallel through parallel/sharding.py's
 `make_sharded_predict`, one replica per card, each batch padded to a
 multiple of 8 rows per card (the JAX engine's `_dp_setup`).
+
+Training: `build_model(..., trainable=True)` keeps the parameters
+trainable, and `train_logits` is the forward of JAX's `loss_fn` under
+`full_precision` with autograd; parallel/sharding.py holds the loss, the
+Adam step and the sharded model, which runs the blocks through the same
+`rms_norm`, `self_attention`, `feed_forward` and `relative_bias_mask`
+on slices of the weights.
 """
 
 from __future__ import annotations
@@ -433,9 +440,13 @@ class RMSNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x):
-        xf = x.float()
-        var = xf.square().mean(-1, keepdim=True)
-        return (xf * torch.rsqrt(var + self.eps)).to(x.dtype) * self.weight
+        return rms_norm(x, self.weight, self.eps)
+
+
+def rms_norm(x, w, eps: float = 1e-6):
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
 class T5Block(nn.Module):
@@ -459,17 +470,33 @@ class T5Block(nn.Module):
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
 
     def forward(self, x, bias_mask):
-        B, L, _ = x.shape
-        h = self.ln1(x)
-        q, k, v = (p(h).view(B, L, self.n_heads, self.d_kv).transpose(1, 2)
-                   for p in (self.q, self.k, self.v))
-        ctx = _attention(q, k, v, bias_mask)
-        x = x + self.o(ctx.transpose(1, 2).reshape(B, L, -1))
-        h = self.ln2(x)
-        if hasattr(self, "wi"):
-            return x + self.wo(torch.relu(self.wi(h)))
-        g = F.gelu(self.wi0(h), approximate="tanh")
-        return x + self.wo(g * self.wi1(h))
+        x = x + self_attention(self.ln1(x), self.q.weight, self.k.weight, self.v.weight, self.o.weight,
+                               self.d_kv, bias_mask)
+        w_in = (self.wi.weight,) if hasattr(self, "wi") else (self.wi0.weight, self.wi1.weight)
+        return x + feed_forward(self.ln2(x), w_in, self.wo.weight)
+
+
+def self_attention(h, wq, wk, wv, wo, d_kv: int, bias_mask):
+    """The attention sublayer's output (before the residual add) of the
+    normed input `h` (B, L, D): q, k and v through (heads x d_kv, D)
+    weights, attention under the (B, heads, L, L) float32 `bias_mask`,
+    and the output product through `wo` (D, heads x d_kv).  On a slice
+    of the heads (rows of wq/wk/wv, columns of wo) it is that slice's
+    share of the whole sublayer's output."""
+    B, L, _ = h.shape
+    q, k, v = (F.linear(h, w).view(B, L, -1, d_kv).transpose(1, 2) for w in (wq, wk, wv))
+    ctx = _attention(q, k, v, bias_mask)
+    return F.linear(ctx.transpose(1, 2).reshape(B, L, -1), wo)
+
+
+def feed_forward(h, w_in, wo):
+    """The FFN sublayer's output of the normed input `h`: relu through
+    `w_in` = (wi,), or gated-gelu through (wi0, wi1), then `wo`.  On a
+    slice of d_ff (rows of w_in, columns of wo) it is that slice's share."""
+    if len(w_in) == 1:
+        return F.linear(torch.relu(F.linear(h, w_in[0])), wo)
+    g = F.gelu(F.linear(h, w_in[0]), approximate="tanh")
+    return F.linear(g * F.linear(h, w_in[1]), wo)
 
 
 def _scores(q, k, bias_mask):
@@ -503,6 +530,18 @@ def _attention(q, k, v, bias_mask):
     return out
 
 
+def relative_bias_mask(rel_bias, mask, cfg: T5Config):
+    """(B, H, L, L) float32 relative bias plus the -1e9 key mask, shared
+    by the blocks, of the (buckets, H) `rel_bias` weight (all heads, or
+    a slice of them) and the (B, L) bool `mask`."""
+    buckets = _bucket_table(mask.shape[1], cfg.rel_buckets, cfg.rel_max_dist, mask.device)
+    # (1, H, L, L), contiguous: the sum below takes its layout, and
+    # the scores' in-place add wants it to match theirs
+    bias = rel_bias[buckets].permute(2, 0, 1).float().contiguous()[None]
+    attn_mask = torch.where(mask[:, None, None, :], 0.0, -1e9).to(torch.float32)
+    return bias + attn_mask
+
+
 class T5Encoder(nn.Module):
     """Embedding, the block stack (relative bias of block 0 shared by all
     blocks, as in T5) and the final RMSNorm."""
@@ -517,15 +556,8 @@ class T5Encoder(nn.Module):
 
     def forward(self, tokens, mask):
         """tokens (B, L) int; mask (B, L) bool.  Returns (B, L, d_model)."""
-        L = tokens.shape[1]
         x = self.embed(tokens)
-        buckets = _bucket_table(L, self.cfg.rel_buckets, self.cfg.rel_max_dist, tokens.device)
-        # (1, H, L, L), contiguous: the sum below takes its layout, and
-        # the scores' in-place add wants it to match theirs
-        bias = self.rel_bias.weight[buckets].permute(2, 0, 1).float().contiguous()[None]
-        attn_mask = torch.where(mask[:, None, None, :], 0.0, -1e9).to(torch.float32)
-        bias_mask = bias + attn_mask  # (B, H, L, L), shared by the blocks
-        del bias
+        bias_mask = relative_bias_mask(self.rel_bias.weight, mask, self.cfg)
         for blk in self.blocks:
             x = blk(x, bias_mask)
         return self.final_ln(x)
@@ -563,10 +595,12 @@ class ProstT5(nn.Module):
         self.head = CNNHead(head_cfg or cfg)
 
 
-def build_model(cfg: T5Config, state: Dict[str, torch.Tensor], device) -> ProstT5:
+def build_model(cfg: T5Config, state: Dict[str, torch.Tensor], device, trainable: bool = False) -> ProstT5:
     """The network on `device` holding `state`'s tensors (their dtype);
     the blocks' FFN (relu or gated) follows the state's names, and the
-    head's shapes its tensors (the default head is ProstT5-XL's)."""
+    head's shapes its tensors (the default head is ProstT5-XL's).  Frozen
+    for inference, or with `trainable` parameters that take gradients
+    (`train_logits`, parallel/sharding.py's training step)."""
     gated = "encoder.blocks.0.wi0.weight" in state
     w1, w2 = state["head.conv1.weight"], state["head.conv2.weight"]
     head_cfg = replace(cfg, d_model=w1.shape[1], cnn_hidden=w1.shape[0], n_classes=w2.shape[0],
@@ -574,7 +608,7 @@ def build_model(cfg: T5Config, state: Dict[str, torch.Tensor], device) -> ProstT
     with torch.device("meta"):
         model = ProstT5(cfg, gated, head_cfg)
     model.load_state_dict({k: v.to(device) for k, v in state.items()}, strict=True, assign=True)
-    return model.eval().requires_grad_(False)
+    return model if trainable else model.eval().requires_grad_(False)
 
 
 # ---------------------------------------------------------------------------
@@ -603,6 +637,15 @@ def residue_logits(model: ProstT5, tokens: torch.Tensor, mask: torch.Tensor) -> 
     are zeroed before the CNN."""
     h = model.encoder(tokens, mask)
     return model.head(h, (tokens < TOK_PREFIX) & mask)
+
+
+def train_logits(model: ProstT5, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The forward of JAX's `loss_fn` (unicore_tpu/parallel/sharding.py):
+    the encoder, then the head on every position (no residue mask), as
+    (B, L, n_classes) float32 logits under `full_precision` and with
+    autograd (not inference_mode)."""
+    with full_precision():
+        return model.head(model.encoder(tokens, mask))
 
 
 @_in_full_precision

@@ -5,8 +5,8 @@ Counterpart of unicore_tpu/parallel/mesh.py.  A mesh is an array of
 
   * "dp" — data parallel: sequence batches (ProstT5 inference, SW pair
     batches, NW merge batches, candidate topologies, gene batches)
-  * "tp" — tensor parallel: ProstT5 weight shards (not ported yet:
-    parallel/sharding.py refuses tp > 1)
+  * "tp" — tensor parallel: ProstT5 weight shards over the heads and d_ff
+    and sequence shards before its head (parallel/sharding.py)
 
 A data-parallel function splits its batch along dim 0 into one block of
 rows per device of the mesh's first axis (`shard`), runs the same
