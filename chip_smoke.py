@@ -238,6 +238,19 @@ failure, and no phase is skipped:
    10d. graft_entry.dryrun_multichip(4) on a logical mesh of the card.
    10e. make_sharded_predict at tp = TRAIN_TP on 8b's bf16 checkpoint:
        3Di against one device's under the tie rule.
+   10f. Training across torch.distributed ranks (`python -m
+       unicore_tpu_torch.parallel.dist_check --train DPxTP`, one process
+       per rank, gloo on this card, collectives through host copies; each
+       rank a RankShardedProstT5 of its tp slice and dp block; they
+       draw their parameters on the card from 10a's or 10c's seed):
+       10f-i. 10c's layers, batch and seed at (dp, tp) = RANK_MESH over 4
+       ranks, started beside 9d and 9e and joined after 10e: one step
+       against 10c's one-process step at (2, 2) on the logical mesh, to
+       10c's tolerances; every rank's replicated leaves bit-identical.
+       10f-ii. 24 layers at full width over RANK_TP ranks at (1,
+       RANK_TP), from 10a's seed and batch, RANK_STEPS steps: the first
+       loss within LOSS_RTOL of 10a's, the losses finite and falling;
+       each rank's ms per step after the first and peak memory.
 
 Order of the run: phase 5's CPU run (6b's CPU run beside its easy-core;
 then three sides, each in one process: 7c and 6d; tree -T raxml-ng and
@@ -247,7 +260,8 @@ and 3d, then 6a and 6e (in a thread of their own) beside phase 5's CUDA
 run (6b beside its easy-core; then two sides, each in one process:
 raxml-ng, 7c and 6d; the rest and 7b), all on those two.  Once it has
 ended, phase 3 and the times of phases 3b, 3c and 3d, phase 4, 7a and 7d
-run with nothing beside them, then 6c, 8a, 8b, 9 and 10.  Each phase's start and end on
+run with nothing beside them, then 6c, 8a, 8b, 9 and 10 (9e's and 10f-i's
+ranks beside 9d; 10f-ii alone).  Each phase's start and end on
 the script's clock is printed as a "[clock]" line.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
@@ -370,6 +384,9 @@ TRAIN_STEPS = 3            # ... timed Adam steps after one warm-up step
 TRAIN_LR = 1e-4
 TRAIN_TP = 4               # 10b and 10e: tp over a logical mesh of the card
 CROSS_TRAIN = (2, 2, 128)  # 10c: layers, B, L at (dp, tp) = (2, 2), CUDA against the CPU
+RANK_MESH = (2, 2)         # 10f-i: gloo ranks (dp, tp), 10c's layers, batch and seed
+RANK_TP = 2                # 10f-ii: gloo ranks at (1, RANK_TP), 10a's seed and batch ...
+RANK_STEPS = 3             # ... Adam steps (the first a warm-up)
 # tests/test_torch_train.py's tolerances, sharded against unsharded: the
 # loss, each gradient tensor (of max|g_ref|), the Adam updates (its rule)
 LOSS_RTOL, GRAD_RTOL, UPDATE_RTOL, STRONG, GRAD_NOISE = 1e-5, 1e-4, 1e-3, 1e-3, 1e-6
@@ -2238,49 +2255,66 @@ def phase_sharded_phylo(ctx, st, mesh):
         + f"; {time.perf_counter() - t0:.1f} s")
 
 
-def start_dist_check():
-    """Phase 9e, start: DIST_RANKS processes of
-    `python -m unicore_tpu_torch.parallel.dist_check --device cuda`, each a
-    rank of one gloo group on this card (NCCL refuses two ranks on one
-    card), brought up through initialize_distributed by the three
-    variables; returns the processes."""
+def start_ranks(n, args, what):
+    """n processes of `python -m unicore_tpu_torch.parallel.dist_check
+    --device cuda ARGS`, each a rank of one gloo group on this card (NCCL
+    refuses two ranks on one card), brought up through
+    initialize_distributed by the three variables and registered in
+    _RUNNING; returns (the processes, their start)."""
     import socket
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=ROOT, UNICORE_TPU_COORDINATOR=f"127.0.0.1:{port}",
-               UNICORE_TPU_NUM_PROCS=str(DIST_RANKS))
+               UNICORE_TPU_NUM_PROCS=str(n))
     procs = []
     with _RUNNING_LOCK:
-        check(not _STOPPED.is_set(), "9e: the run is stopping")
-        for rank in range(DIST_RANKS):
+        check(not _STOPPED.is_set(), f"{what}: the run is stopping")
+        for rank in range(n):
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "unicore_tpu_torch.parallel.dist_check", "--device", "cuda"],
+                [sys.executable, "-m", "unicore_tpu_torch.parallel.dist_check", "--device", "cuda", *map(str, args)],
                 env=dict(env, UNICORE_TPU_PROC_ID=str(rank)), cwd=ROOT,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
             _RUNNING.add(procs[-1])
     return procs, time.perf_counter()
 
 
-def finish_dist_check(started):
-    """Phase 9e, end: every rank exited 0 having checked the gathered
-    results and the all-reduced hit count against its full local
-    reference, on gloo, with one kernel launch on its block."""
-    procs, t0 = started
+def finish_ranks(started, what, timeout=240):
+    """Each rank's "OK ..." line once every rank has exited 0 (it checks
+    its own results and raises otherwise); fails the phase where one
+    did not."""
+    procs, _ = started
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=240)[0])
+            outs.append(p.communicate(timeout=timeout)[0])
     finally:
         with _RUNNING_LOCK:
             for p in procs:
                 p.kill()
                 _RUNNING.discard(p)
+    lines = []
     for rank, (p, out) in enumerate(zip(procs, outs)):
-        check(p.returncode == 0 and f"OK procs={DIST_RANKS} backend=gloo" in out and "launches=1" in out,
-              f"9e: rank {rank} exited {p.returncode}:\n{out[-3000:]}")
-    line = [l for l in outs[0].splitlines() if l.startswith("OK")][0]
+        ok = [l for l in out.splitlines() if l.startswith(f"OK procs={len(procs)} backend=gloo")]
+        check(p.returncode == 0 and ok, f"{what}: rank {rank} exited {p.returncode}:\n{out[-3000:]}")
+        lines.append(ok[-1])
+    return lines
+
+
+def start_dist_check():
+    """Phase 9e, start: DIST_RANKS ranks of dist_check's SW mode."""
+    return start_ranks(DIST_RANKS, [], "9e")
+
+
+def finish_dist_check(started):
+    """Phase 9e, end: every rank exited 0 having checked the gathered
+    results and the all-reduced hit count against its full local
+    reference, on gloo, with one kernel launch on its block."""
+    t0 = started[1]
+    lines = finish_ranks(started, "9e")
+    check(all("launches=1" in l for l in lines), f"9e: a rank did not launch the kernel once: {lines}")
+    line = lines[0]
     log(f"[phase 9e] {DIST_RANKS} ranks through initialize_distributed (gloo, kernels on this card, collectives "
         f"on host copies): {line}; {time.perf_counter() - t0:.1f} s from their start")
 
@@ -2382,8 +2416,9 @@ def phase_native(ctx, work):
 
 def phase_multi_device(ctx, work, phylo):
     """Phase 9: 9a-9c and 9d on a logical mesh of LOGICAL_SHARDS shards of
-    the card, 9e's ranks started before 9d and joined after it, then 9f.
-    Returns 9a's numbers with 9d's sharded launches."""
+    the card, 9e's ranks started before 9d and joined after it, then 9f;
+    10f-i's ranks are started beside 9d too (phase 10 joins them).
+    Returns 9a's numbers with 9d's sharded launches, and 10f-i's ranks."""
     mesh = logical_mesh(ctx["dev"])
     with span("phase 9a"):
         row = phase_sharded_sw(ctx, mesh)
@@ -2392,45 +2427,19 @@ def phase_multi_device(ctx, work, phylo):
     with span("phase 9c"):
         phase_sharded_phylo(ctx, phylo, mesh)
     ranks = start_dist_check()
+    cross_ranks = start_rank_cross(work)
     with span("phase 9d"):
         row["launches"] = phase_sharded_engines(ctx, work, mesh)
     with span("phase 9e"):
         finish_dist_check(ranks)
     with span("phase 9f"):
         phase_native(ctx, work)
-    return row
+    return row, cross_ranks
 
 
 # ---------------------------------------------------------------------------
 # phase 10: ProstT5's training step, tensor and sequence parallelism
 # ---------------------------------------------------------------------------
-
-def draw_train_state(cfg, seed, device):
-    """A float32 ProstT5 state at `cfg`'s geometry drawn on `device` from a
-    seeded torch.Generator, as synthetic.prostt5_hf_tensors draws: products
-    and convolutions fan-in scaled, RMSNorm weights 1 + 0.1 N(0, 1),
-    embedding N(0, 1), rel_bias 0.5 N(0, 1), conv biases 0.1 N(0, 1)."""
-    import torch
-
-    from unicore_tpu_torch.models.prostt5 import ProstT5
-
-    with torch.device("meta"):
-        shapes = {k: v.shape for k, v in ProstT5(cfg, cfg.ff == "gated-gelu").state_dict().items()}
-    gen = torch.Generator(device=device).manual_seed(seed)
-    state = {}
-    for name, shape in shapes.items():
-        x = torch.randn(*shape, generator=gen, device=device)
-        if name.endswith("ln1.weight") or name.endswith("ln2.weight") or name.endswith("final_ln.weight"):
-            x = x.mul_(0.1).add_(1.0)
-        elif name.endswith("bias"):
-            x = x.mul_(0.1)
-        elif name == "encoder.rel_bias.weight":
-            x = x.mul_(0.5)
-        elif name != "encoder.embed.weight":
-            x = x.mul_(float(np.prod(shape[1:])) ** -0.5)
-        state[name] = x
-    return state
-
 
 def train_batch(B, L, seed):
     """(tokens, mask, labels): framed random proteins of ragged lengths (the
@@ -2559,9 +2568,10 @@ def phase_train(ctx):
     lr sign(g) step turns gradient noise into lr-sized moves, and a deep
     stack amplifies them; JAX's own tp = 4 step parts from its unsharded
     one alike) and are printed.  Prints ms per step, the bound, peak
-    memory and tokens per second."""
+    memory and tokens per second.  Returns 10a's losses."""
     import torch
 
+    from unicore_tpu_torch import synthetic
     from unicore_tpu_torch.models import prostt5 as P
     from unicore_tpu_torch.parallel import sharding
     from unicore_tpu_torch.parallel.mesh import make_mesh
@@ -2576,7 +2586,7 @@ def phase_train(ctx):
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        state = draw_train_state(cfg, TRAIN_SEED, dev)
+        state = synthetic.prostt5_train_state(cfg, TRAIN_SEED, dev)
         p0 = {k: state[k].cpu().clone() for k in ABOVE_RELUS}
         n_params = sum(v.numel() for v in state.values())
         if tp == 1:
@@ -2610,6 +2620,7 @@ def phase_train(ctx):
         f"gradients above the relus at {hi:.3g} of max|g|, below at most {lo:.3g} of their norm ({lo_max:.3g} of "
         f"their max): {lines}; updates of the warm-up step above the relus at {share:.3g} of the Adam rule's "
         f"tolerance; later losses apart by {', '.join(f'{x:.3g}' for x in rel[1:])}")
+    return a["losses"]
 
 
 def phase_train_cross(ctx):
@@ -2618,9 +2629,12 @@ def phase_train_cross(ctx):
     model on the CPU, from the same parameters and a cut batch: the loss
     within LOSS_RTOL, the gradients as check_grads holds them, the
     head's second convolution under the Adam rule and every parameter
-    within 2 lr of the CPU's."""
+    within 2 lr of the CPU's.  Returns the card's step (10f-i's
+    reference): its loss, gradients and parameters after it, and the
+    parameters of ABOVE_RELUS before it."""
     import torch
 
+    from unicore_tpu_torch import synthetic
     from unicore_tpu_torch.models import prostt5 as P
     from unicore_tpu_torch.parallel import sharding
     from unicore_tpu_torch.parallel.mesh import make_mesh
@@ -2629,7 +2643,7 @@ def phase_train_cross(ctx):
     n_layers, B, L = CROSS_TRAIN
     cfg = dataclasses.replace(P.T5Config(), n_layers=n_layers)
     batch = train_batch(B, L, TRAIN_SEED + 1)
-    state = {k: v.cpu() for k, v in draw_train_state(cfg, TRAIN_SEED + 1, ctx["dev"]).items()}
+    state = {k: v.cpu() for k, v in synthetic.prostt5_train_state(cfg, TRAIN_SEED + 1, ctx["dev"]).items()}
     mesh = make_mesh(devices=[ctx["dev"]] * 4, dp=2, tp=2)
     sharded = sharding.shard_params(state, mesh)
     cpu = P.build_model(cfg, {k: v.clone() for k, v in state.items()}, "cpu", trainable=True)
@@ -2658,6 +2672,7 @@ def phase_train_cross(ctx):
         f"({lo_max:.3g} of their max); Adam updates above the relus at {share:.3g} of the tolerance, every "
         f"parameter within {moved:.3g} of the CPU's; "
         f"{time.perf_counter() - t0:.1f} s")
+    return dict(loss=l_gpu, grads=g_gpu, after=p_gpu, p0={k: state[k] for k in ABOVE_RELUS})
 
 
 def phase_tp_predict(ctx, work):
@@ -2697,22 +2712,116 @@ def phase_tp_predict(ctx, work):
         f"{time.perf_counter() - t0:.1f} s")
 
 
-def phase_training(ctx, work):
+def write_batch(path, tokens, mask, labels):
+    np.savez(path, tokens=tokens, mask=mask, labels=labels)
+    return path
+
+
+def start_rank_cross(work):
+    """Phase 10f-i, start: RANK_MESH's dp x tp gloo ranks of dist_check's
+    training mode on this card, one Adam step of 10c's layers at full
+    width from 10c's seed on 10c's batch, rank 0 writing the gathered
+    loss, gradients and parameters."""
+    n_layers, B, L = CROSS_TRAIN
+    dp, tp = RANK_MESH
+    batch = write_batch(os.path.join(work, "rank_cross_batch.npz"), *train_batch(B, L, TRAIN_SEED + 1))
+    out = os.path.join(work, "rank_cross_out.npz")
+    args = ["--train", f"{dp}x{tp}", "--width", "full", "--layers", n_layers, "--steps", 1, "--lr", TRAIN_LR,
+            "--seed", TRAIN_SEED + 1, "--batch", batch, "--out", out]
+    return start_ranks(dp * tp, args, "10f-i"), out
+
+
+def finish_rank_cross(started, ref):
+    """Phase 10f-i, end: the ranks' step against 10c's one-process step at
+    the same (dp, tp) on a logical mesh of the card (`ref`), to 10c's
+    tolerances: the loss within LOSS_RTOL, the gradients as check_grads
+    holds them, the head's second convolution under the Adam rule and
+    every parameter within 2 lr.  Each rank checked that its replicated
+    leaves are bit-identical to every other rank's."""
+    import torch
+
+    (procs, t0), out = started
+    lines = finish_ranks((procs, t0), "10f-i")
+    with np.load(out) as z:
+        loss = float(z["loss"][0])
+        grads = {k[5:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("grad/")}
+        after = {k[6:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("param/")}
+        coords = z["coords"].tolist()
+    dp, tp = RANK_MESH
+    check(coords == [list(divmod(r, tp)) for r in range(dp * tp)], f"10f-i: ranks placed at {coords}")
+    rel = abs(loss / ref["loss"] - 1)
+    check(rel <= LOSS_RTOL, f"10f-i: loss {loss} over the ranks, {ref['loss']} in one process")
+    hi, lo, lo_max, _ = check_grads(ref["grads"], grads, "10f-i")
+    share = check_updates(ref["p0"], ref["after"], after, ref["grads"], 1, "10f-i")
+    moved = max(float((after[k] - ref["after"][k]).abs().max()) for k in ref["after"])
+    check(moved <= 2 * TRAIN_LR, f"10f-i: a parameter {moved:.3g} from the one-process step's")
+    log(f"[phase 10f-i] {dp * tp} gloo ranks at (dp, tp) = ({dp}, {tp}) on this card, {CROSS_TRAIN[0]} of 24 "
+        f"layers at full width, one Adam step against 10c's one-process step on a logical mesh: loss {loss:.6f} "
+        f"({rel:.3g} apart); gradients above the relus at {hi:.3g} of max|g|, below at most {lo:.3g} of their "
+        f"norm ({lo_max:.3g} of their max); updates above the relus at {share:.3g} of the Adam rule's "
+        f"tolerance, every parameter within {moved:.3g}; replicated leaves bit-identical on every rank; "
+        f"{time.perf_counter() - t0:.1f} s from the ranks' start")
+    for line in lines:
+        log(f"  {line}")
+
+
+def rank_numbers(line):
+    """{key: value} of a dist_check "OK ..." line's key=value fields."""
+    return dict(f.split("=", 1) for f in line.split() if "=" in f)
+
+
+def phase_rank_tp(ctx, work, losses_10a):
+    """Phase 10f-ii: ProtT5-XL's full width (24 layers) over RANK_TP gloo
+    ranks of this card at (dp, tp) = (1, RANK_TP), each drawing 10a's
+    state from TRAIN_SEED and keeping its slices, RANK_STEPS Adam steps
+    on 10a's batch: the first loss within LOSS_RTOL of 10a's, every loss
+    finite, the last below the first.  Prints each rank's ms per step
+    after the first and its peak memory: RANK_TP processes sharing one
+    card, their collectives through host copies over gloo, not the speed
+    of several cards."""
+    B, L = TRAIN_BATCH
+    batch = write_batch(os.path.join(work, "rank_tp_batch.npz"), *train_batch(B, L, TRAIN_SEED))
+    args = ["--train", f"1x{RANK_TP}", "--width", "full", "--layers", 24, "--steps", RANK_STEPS,
+            "--lr", TRAIN_LR, "--seed", TRAIN_SEED, "--batch", batch]
+    started = start_ranks(RANK_TP, args, "10f-ii")
+    lines = finish_ranks(started, "10f-ii", timeout=600)
+    nums = [rank_numbers(line) for line in lines]
+    losses = [float(x) for x in nums[0]["loss"].split(",")]
+    check(all(n["loss"] == nums[0]["loss"] for n in nums), f"10f-ii: the ranks' losses differ: {lines}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"10f-ii: losses {losses}")
+    rel = abs(losses[0] / losses_10a[0] - 1)
+    check(rel <= LOSS_RTOL, f"10f-ii: first loss {losses[0]} over the ranks, {losses_10a[0]} in 10a")
+    per_rank = "; ".join(
+        f"rank {r}: {np.mean([float(x) for x in n['ms'].split(',')[1:]]):.1f} ms per step after the first "
+        f"({n['ms']}), peak {float(n['peak_gib']):.2f} GiB" for r, n in enumerate(nums))
+    log(f"[phase 10f-ii] {RANK_TP} gloo ranks at (dp, tp) = (1, {RANK_TP}) sharing this card, 24 layers at full "
+        f"width from 10a's parameters and batch: losses {', '.join(f'{x:.6f}' for x in losses)}, the first "
+        f"{rel:.3g} from 10a's {losses_10a[0]:.6f} (limit {LOSS_RTOL}); {per_rank} (two processes on one card, "
+        f"collectives through host copies; {ctx['smi']}); {time.perf_counter() - started[1]:.1f} s from the "
+        f"ranks' start")
+
+
+def phase_training(ctx, work, cross_ranks):
     """Phase 10: 10a and 10b (phase_train), 10c, the port's dry run
     `graft_entry.dryrun_multichip(4)` on a logical mesh of the card (10d),
-    then 10e, one after another."""
+    then 10e, one after another, 10f-i (`cross_ranks`, started beside 9d,
+    against 10c), then 10f-ii alone."""
     from unicore_tpu_torch import graft_entry
 
     with span("phase 10a, 10b"):
-        phase_train(ctx)
+        losses_10a = phase_train(ctx)
     with span("phase 10c"):
-        phase_train_cross(ctx)
+        ref = phase_train_cross(ctx)
     with span("phase 10d"):
         out = graft_entry.dryrun_multichip(LOGICAL_SHARDS, devices=[ctx["dev"]] * LOGICAL_SHARDS)
         log(f"[phase 10d] graft_entry.dryrun_multichip({LOGICAL_SHARDS}) on a logical mesh of the card: "
             f"dp = {out['dp']}, tp = {out['tp']}, loss {out['loss']:.6f}")
     with span("phase 10e"):
         phase_tp_predict(ctx, work)
+    with span("phase 10f-i"):
+        finish_rank_cross(cross_ranks, ref)
+    with span("phase 10f-ii"):
+        phase_rank_tp(ctx, work, losses_10a)
 
 
 def phase6_op_times(ctx, msa_files):
@@ -2909,9 +3018,9 @@ def main() -> int:
         with span("phase 8b"):
             phase_prostt5_cross(ctx, work)
         with span("phase 9"):
-            sharded = phase_multi_device(ctx, work, inputs["phylo"])
+            sharded, cross_ranks = phase_multi_device(ctx, work, inputs["phylo"])
         with span("phase 10"):
-            phase_training(ctx, work)
+            phase_training(ctx, work, cross_ranks)
     finally:
         stop_cli_runs()
         shutil.rmtree(work, ignore_errors=True)

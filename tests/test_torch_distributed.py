@@ -48,3 +48,23 @@ def test_dist_check_needs_the_coordinator():
                          env=dict(env, PYTHONPATH=REPO), cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode != 0 and "UNICORE_TPU_COORDINATOR is not set" in res.stderr
+
+
+def test_initialize_distributed_twice_returns_the_backend_up(monkeypatch):
+    """A second call in one process returns the backend already up and
+    leaves the group as it was."""
+    import torch.distributed as dist
+
+    from unicore_tpu_torch.parallel import mesh as mesh_mod
+
+    monkeypatch.setenv(mesh_mod.ENV_COORDINATOR, f"127.0.0.1:{_free_port()}")
+    monkeypatch.setenv(mesh_mod.ENV_NUM_PROCS, "1")
+    monkeypatch.setenv(mesh_mod.ENV_PROC_ID, "0")
+    assert mesh_mod.initialize_distributed(timeout_s=30, backend="gloo") == "gloo"
+    try:
+        group = dist.group.WORLD
+        assert mesh_mod.initialize_distributed(timeout_s=30, backend="gloo") == "gloo"
+        assert mesh_mod.initialize_distributed(timeout_s=30) == "gloo"
+        assert dist.group.WORLD is group and dist.get_world_size() == 1
+    finally:
+        dist.destroy_process_group()

@@ -26,7 +26,8 @@ assert {"unicore_tpu_torch.align.cascade", "unicore_tpu_torch.phylo.genebatch",
         "unicore_tpu_torch.modules.genetree", "unicore_tpu_torch.modules.config",
         "unicore_tpu_torch.models.prostt5", "unicore_tpu_torch.seq.lookup",
         "unicore_tpu_torch.parallel.mesh", "unicore_tpu_torch.parallel.sharding",
-        "unicore_tpu_torch.parallel.dist_check", "unicore_tpu_torch.native",
+        "unicore_tpu_torch.parallel.dist_check", "unicore_tpu_torch.parallel.collectives",
+        "unicore_tpu_torch.native",
         "unicore_tpu_torch.native.build", "unicore_tpu_torch.graft_entry"} <= set(names)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -25,7 +25,11 @@ accelerator devices).
 Multi-process: `initialize_distributed` brings up `torch.distributed`
 from the JAX package's three environment variables; each rank then
 holds its own shard of a batch and exchanges results through
-collectives.
+collectives.  `process_mesh` is the counterpart of JAX's global mesh
+after `jax.distributed.initialize`: one device per process, rank r at
+(d, t) = divmod(r, tp) of a (dp, tp) mesh, with the tp and dp process
+groups that parallel/collectives.py and parallel/sharding.py's
+`RankShardedProstT5` reduce over.
 """
 
 from __future__ import annotations
@@ -210,19 +214,28 @@ def initialize_distributed(timeout_s: float = 300.0, backend: Optional[str] = No
     """Bring up torch.distributed when launched as several processes, from
     the JAX package's variables: $UNICORE_TPU_COORDINATOR (host:port),
     $UNICORE_TPU_NUM_PROCS and $UNICORE_TPU_PROC_ID.  With none set it
-    does nothing and returns None; else the backend's name.
+    does nothing and returns None; else the backend's name.  A second
+    call in one process returns the backend already up.
 
     `backend` None: NCCL when every rank of this host can have a card of
     its own (at least NUM_PROCS cards), each rank then on card
     rank % count; gloo otherwise (NCCL refuses two ranks on one card),
     with collectives on host tensors.  Ranks that compute on the CPU ask
     for "gloo".  The group's set-up and every collective fail after
-    `timeout_s` instead of hanging."""
+    `timeout_s` instead of hanging.
+
+    `process_mesh` then places rank r at (d, t) = divmod(r, tp) of a
+    (dp, tp) mesh, where JAX's make_mesh puts process r's device once
+    `jax.distributed.initialize` has made the global device list (one
+    device per process, in process order, reshaped (dp, tp)): the ranks
+    of one tp group are consecutive."""
     coord = os.environ.get(ENV_COORDINATOR)
     if not coord:
         return None
     import torch.distributed as dist
 
+    if dist.is_initialized():
+        return dist.get_backend()
     world = int(os.environ.get(ENV_NUM_PROCS, "1"))
     rank = int(os.environ.get(ENV_PROC_ID, "0"))
     if backend is None:
@@ -233,3 +246,71 @@ def initialize_distributed(timeout_s: float = 300.0, backend: Optional[str] = No
     dist.init_process_group(backend, init_method=f"tcp://{coord}", world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
     return backend
+
+
+class ProcessMesh:
+    """This process's place in a (dp, tp) mesh of torch.distributed ranks
+    (`process_mesh`): the world's `dp` and `tp`, this rank's `d` and `t`,
+    its one `device`, and the process groups of its tp row (`tp_group`,
+    the ranks d tp .. d tp + tp - 1) and of its dp column (`dp_group`,
+    the ranks t, t + tp, ...).  Collectives of a card tensor go through a
+    host copy where the backend is gloo (`host_comm`)."""
+
+    def __init__(self, dp: int, tp: int, device: torch.device, tp_group, dp_group):
+        import torch.distributed as dist
+
+        self.dp, self.tp = dp, tp
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        self.d, self.t = divmod(self.rank, tp)
+        self.device = device
+        self.tp_group, self.dp_group = tp_group, dp_group
+        self.host_comm = dist.get_backend() == "gloo"
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"dp": self.dp, "tp": self.tp}
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh(dp={self.dp}, tp={self.tp}, rank {self.rank} at (d, t) = ({self.d}, {self.t}), "
+                f"{self.device})")
+
+
+def process_mesh(dp: Optional[int] = None, tp: Optional[int] = None,
+                 device: Optional[DeviceLike] = None, timeout_s: float = 300.0) -> ProcessMesh:
+    """The (dp, tp) mesh of the torch.distributed world that
+    initialize_distributed brought up ((dp, tp) from factor_mesh(world)
+    unless both are given): this rank at (d, t) = divmod(rank, tp), as
+    JAX's make_mesh lays out the processes' devices.  Every rank must
+    call it, with the same arguments: it makes the tp and dp groups
+    (dist.new_group, in one order on every rank; their collectives fail
+    after `timeout_s`).
+
+    `device` None is this rank's card: cuda:rank % count under NCCL (the
+    card initialize_distributed set), the current card under gloo.  The
+    CPU only where the caller asks for it; without a card and without
+    "cpu" it raises."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("process_mesh: torch.distributed is not initialized (initialize_distributed)")
+    world = dist.get_world_size()
+    if dp is None or tp is None:
+        dp, tp = factor_mesh(world)
+    if dp * tp != world:
+        raise ValueError(f"process mesh {dp}x{tp} != {world} ranks")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("process_mesh: no CUDA device; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    timeout = datetime.timedelta(seconds=timeout_s)
+    rank = dist.get_rank()
+    groups = {}
+    for d in range(dp):
+        g = dist.new_group(list(range(d * tp, (d + 1) * tp)), timeout=timeout)
+        if rank // tp == d:
+            groups["tp"] = g
+    for t in range(tp):
+        g = dist.new_group(list(range(t, world, tp)), timeout=timeout)
+        if rank % tp == t:
+            groups["dp"] = g
+    return ProcessMesh(dp, tp, _device(device), groups["tp"], groups["dp"])

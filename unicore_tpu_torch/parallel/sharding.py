@@ -30,18 +30,27 @@ computes its slice's share of the output (attention over its head group,
 or its d_ff slice of the FFN), and the shares are summed on the first
 device (the all-reduce).  The head runs on sequence shards, each with the
 halo rows its two kernel-7 convolutions need from its neighbours.
+
+Across torch.distributed ranks, one process per device of the mesh as in
+JAX after `jax.distributed.initialize`, `shard_params(state, pmesh)` of a
+parallel/mesh.py `ProcessMesh` gives a `RankShardedProstT5`: each rank
+holds its own tp slice of the split tensors and the replicated ones, its
+block of the batch's rows and its sequence block of the head, and the
+sums become parallel/collectives.py's collectives (GRAD_REDUCE says
+over which ranks each leaf's gradient is summed after the backward).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unicore_tpu_torch.parallel.mesh import Mesh, gather, shard, shard_devices
+from unicore_tpu_torch.parallel import collectives as C
+from unicore_tpu_torch.parallel.mesh import Mesh, ProcessMesh, gather, shard, shard_devices
 
 COLUMN_PARALLEL = ("q", "k", "v", "wi", "wi0", "wi1")
 ROW_PARALLEL = ("o", "wo")
@@ -67,6 +76,17 @@ def param_pspecs(state: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
     return specs
 
 
+def _geometry(state: Dict[str, torch.Tensor], tp: int):
+    """(n_layers, gated, n_heads) of a ProstT5 state; raises where tp does
+    not divide n_heads or d_ff."""
+    n_layers = len({n.split(".")[2] for n in state if _layer_name(n)})
+    n_heads = state["encoder.rel_bias.weight"].shape[1]
+    d_ff = state["encoder.blocks.0.wo.weight"].shape[1] if n_layers else 0
+    if n_heads % tp or d_ff % tp:
+        raise ValueError(f"tp = {tp} must divide n_heads ({n_heads}) and d_ff ({d_ff})")
+    return n_layers, "encoder.blocks.0.wi0.weight" in state, n_heads
+
+
 def _key(name: str) -> str:
     return name.replace(".", "/")
 
@@ -87,12 +107,7 @@ class ShardedProstT5(nn.Module):
         devs = mesh.devices.reshape(mesh.devices.shape[0], -1)
         self.mesh, self.devs = mesh, devs
         self.dp, self.tp = devs.shape
-        self.n_layers = len({n.split(".")[2] for n in state if _layer_name(n)})
-        self.gated = "encoder.blocks.0.wi0.weight" in state
-        n_heads = state["encoder.rel_bias.weight"].shape[1]
-        d_ff = state["encoder.blocks.0.wo.weight"].shape[1] if self.n_layers else 0
-        if n_heads % self.tp or d_ff % self.tp:
-            raise ValueError(f"tp = {self.tp} must divide n_heads ({n_heads}) and d_ff ({d_ff})")
+        self.n_layers, self.gated, _ = _geometry(state, self.tp)
         self.specs = param_pspecs(state)
         self.replicated = nn.ParameterDict()
         self.slices = nn.ModuleList(nn.ParameterDict() for _ in range(self.tp))
@@ -158,26 +173,9 @@ class ShardedProstT5(nn.Module):
         ends of the sequence, and zeroes the first convolution's output at
         positions outside [0, L) (and off the residues), where the whole
         sequence's second convolution reads zero padding."""
-        tp = self.tp
-        B, L, _ = h.shape
-        if L % tp:
-            raise ValueError(f"sequence parallelism: L = {L} is not a multiple of tp = {tp}")
-        w1, b1, w2, b2 = (self.rep(f"head.conv{c}.{p}", d) for c in (1, 2) for p in ("weight", "bias"))
-        r = w1.shape[2] // 2
-        m = torch.ones(B, L, device=h.device) if res_mask is None else res_mask.float()
-        hp = F.pad(h.float(), (0, 0, 2 * r, 2 * r))
-        mp = F.pad(m, (2 * r, 2 * r))
-        n = L // tp
-        out = []
-        for t in range(tp):
-            dev = self.devs[d, t]
-            win = slice(t * n, (t + 1) * n + 4 * r)  # positions t n - 2r .. (t + 1) n + 2r
-            y = hp[:, win].to(dev).transpose(1, 2)
-            mt = mp[:, win].to(dev)[:, None, :]
-            y = torch.relu(F.conv1d(y * mt, w1.to(dev).float(), b1.to(dev).float()))
-            y = F.conv1d(y * mt[..., r:-r], w2.to(dev).float(), b2.to(dev).float())
-            out.append(y.transpose(1, 2))
-        return out
+        w = [self.rep(f"head.conv{c}.{p}", d) for c in (1, 2) for p in ("weight", "bias")]
+        h, m, n = _pad_for_head(h, res_mask, self.tp, w[0].shape[2] // 2)
+        return [_head_block(h, m, t, n, w, self.devs[d, t]) for t in range(self.tp)]
 
     def _groups(self, tokens, mask):
         devs = shard_devices(self.mesh)
@@ -212,25 +210,210 @@ class ShardedProstT5(nn.Module):
         return gather(rows, self.devs[0, 0])
 
 
+def _pad_for_head(h: torch.Tensor, res_mask: Optional[torch.Tensor], tp: int, r: int):
+    """(h, mask, n): the hidden states h (B, L, D) as float32 and the
+    (B, L) float32 residue mask (ones where `res_mask` is None), each
+    padded with 2 r zero rows at both ends of the sequence (r = the
+    head's kernel // 2; two convolutions), and the block length n = L /
+    tp.  Raises where tp does not divide L."""
+    B, L, _ = h.shape
+    if L % tp:
+        raise ValueError(f"sequence parallelism: L = {L} is not a multiple of tp = {tp}")
+    m = torch.ones(B, L, device=h.device) if res_mask is None else res_mask.float()
+    return F.pad(h.float(), (0, 0, 2 * r, 2 * r)), F.pad(m, (2 * r, 2 * r)), L // tp
+
+
+def _head_block(hp, mp, t: int, n: int, w, dev) -> torch.Tensor:
+    """(B, n, n_classes) float32 logits of sequence block t (positions t n
+    .. (t + 1) n) of the padded `hp`, `mp` (_pad_for_head) through the
+    head's (w1, b1, w2, b2) on `dev`: the block's rows with 2 r halo rows
+    on each side, zero beyond the ends of the sequence, and conv1's
+    output zeroed at positions outside [0, L) (and off the residues),
+    where the whole sequence's conv2 reads zero padding."""
+    w1, b1, w2, b2 = (x.to(dev).float() for x in w)
+    r = w1.shape[2] // 2
+    win = slice(t * n, (t + 1) * n + 4 * r)  # positions t n - 2r .. (t + 1) n + 2r
+    y = hp[:, win].to(dev).transpose(1, 2)
+    mt = mp[:, win].to(dev)[:, None, :]
+    y = torch.relu(F.conv1d(y * mt, w1, b1))
+    y = F.conv1d(y * mt[..., r:-r], w2, b2)
+    return y.transpose(1, 2)
+
+
 def _nll(logits, labels, mask) -> torch.Tensor:
     """Σ nll · mask of float32 logits (JAX's log_softmax and take_along_axis)."""
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, labels[..., None])[..., 0]
     return (nll * mask.float()).sum()
 
 
-def shard_params(state: Dict[str, torch.Tensor], mesh: Mesh) -> ShardedProstT5:
-    """`state` (models/prostt5.py names) split over `mesh` by param_pspecs.
-    Raises where tp does not divide n_heads or d_ff."""
+# Over which ranks each leaf's gradient is summed after the backward of a
+# RankShardedProstT5, keyed by the leaf names of param_pspecs (_leaf_name):
+#   * "dp": a split leaf (its rank's slice), or a replicated leaf whose
+#     gradient each rank of a tp group already holds whole (to_group's
+#     backward sums the tp ranks' parts of every gradient that enters the
+#     replicated residual stream, from_group's passes it on as it is):
+#     summed over the dp group, the batch's blocks;
+#   * "world": a replicated leaf each tp rank sees only part of: rel_bias
+#     (each rank's heads' columns) and the head's convolutions (each
+#     rank's sequence block): summed over every rank.
+GRAD_REDUCE = {
+    "q": "dp", "k": "dp", "v": "dp", "o": "dp",
+    "wi": "dp", "wi0": "dp", "wi1": "dp", "wo": "dp",
+    "embed": "dp", "ln1": "dp", "ln2": "dp", "final_ln": "dp",
+    "rel_bias": "world", "conv1": "world", "conv2": "world",
+}
+
+
+def _leaf_name(name: str) -> str:
+    """GRAD_REDUCE's key of a state name: `q` of
+    "encoder.blocks.3.q.weight", `embed` of "encoder.embed.weight",
+    `conv1` of "head.conv1.bias"."""
+    return _layer_name(name) or name.split(".")[1]
+
+
+class RankShardedProstT5(nn.Module):
+    """This rank's part of a ProstT5 state over a ProcessMesh (`shard_params`
+    with a parallel/mesh.py ProcessMesh): its tp slice of each split
+    tensor (param_pspecs) and every replicated tensor, as parameters on
+    the mesh's device.  Its forward takes the rank's block of rows (block
+    d of B / dp) and, in the head, its sequence block t of L / tp;
+    `reduce_grads` sums the gradients by GRAD_REDUCE."""
+
+    def __init__(self, state: Dict[str, torch.Tensor], pmesh: ProcessMesh):
+        super().__init__()
+        self.mesh, self.tp, self.dp = pmesh, pmesh.tp, pmesh.dp
+        self.n_layers, self.gated, self.n_heads = _geometry(state, self.tp)
+        self.specs = param_pspecs(state)
+        unknown = sorted({_leaf_name(n) for n in state} - GRAD_REDUCE.keys())
+        if unknown:
+            raise ValueError(f"no gradient reduction rule for {unknown}")
+        self.leaves = nn.ParameterDict()
+        for name, t in state.items():
+            spec = self.specs[name]
+            if spec:
+                t = t.detach().chunk(self.tp, spec.index("tp"))[pmesh.t]
+            self.leaves[_key(name)] = _leaf(t, pmesh.device)
+
+    def leaf(self, name: str) -> nn.Parameter:
+        return self.leaves[_key(name)]
+
+    def _to_tp(self, x):
+        return C.to_group(x, self.mesh.tp_group, self.mesh.host_comm)
+
+    def _from_tp(self, x):
+        return C.from_group(x, self.mesh.tp_group, self.mesh.host_comm)
+
+    def block(self, x) -> torch.Tensor:
+        """This rank's dp block (rows d B / dp .. (d + 1) B / dp) of x (B,
+        ...) on the mesh's device."""
+        t = torch.as_tensor(x)
+        B = t.shape[0]
+        if B % self.dp:
+            raise ValueError(f"a batch of {B} rows does not split over {self.dp} shards; pad it first")
+        b = B // self.dp
+        return t[self.mesh.d * b:(self.mesh.d + 1) * b].to(self.mesh.device)
+
+    def encode(self, cfg, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Hidden states (B_d, L, D) of this rank's rows, whole on every
+        rank of its tp group: models/prostt5.py's T5Encoder, each block's
+        attention over this rank's head group and its FFN over this
+        rank's d_ff slice, the shares summed over the tp group."""
+        from unicore_tpu_torch.models import prostt5 as P
+
+        hs, t = self.n_heads // self.tp, self.mesh.t
+        x = F.embedding(tokens, self.leaf("encoder.embed.weight"))
+        rel = self.leaf("encoder.rel_bias.weight")[:, t * hs:(t + 1) * hs]
+        bias_mask = P.relative_bias_mask(rel, mask, cfg)
+        ffn = ("wi0", "wi1") if self.gated else ("wi",)
+        for i in range(self.n_layers):
+            pre = f"encoder.blocks.{i}."
+            w = {n: self.leaf(pre + n + ".weight") for n in ("q", "k", "v", "o", "wo") + ffn}
+            h = self._to_tp(P.rms_norm(x, self.leaf(pre + "ln1.weight")))
+            x = x + self._from_tp(P.self_attention(h, w["q"], w["k"], w["v"], w["o"], cfg.d_kv, bias_mask))
+            h = self._to_tp(P.rms_norm(x, self.leaf(pre + "ln2.weight")))
+            x = x + self._from_tp(P.feed_forward(h, [w[n] for n in ffn], w["wo"]))
+        return P.rms_norm(x, self.leaf("encoder.final_ln.weight"))
+
+    def head(self, h: torch.Tensor, res_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B_d, L / tp, n_classes) float32 logits of this rank's sequence
+        block t of the hidden states h (B_d, L, D), whole on every rank
+        of its tp group (ShardedProstT5.head's block t); h enters through
+        to_group, so each rank's backward sums every block's gradient."""
+        w = [self.leaf(f"head.conv{c}.{p}") for c in (1, 2) for p in ("weight", "bias")]
+        hp, mp, n = _pad_for_head(self._to_tp(h), res_mask, self.tp, w[0].shape[2] // 2)
+        return _head_block(hp, mp, self.mesh.t, n, w, self.mesh.device)
+
+    def loss(self, cfg, tokens, mask, labels) -> torch.Tensor:
+        """JAX's loss_fn over the whole batch (B, L), the same 0-d tensor on
+        every rank: this rank's Σ nll · m over its rows and sequence block,
+        summed over the world by from_group (its backward is this rank's
+        term's), over the world's Σ m (a constant)."""
+        toks, msk, labs = self.block(tokens).long(), self.block(mask).bool(), self.block(labels).long()
+        n = toks.shape[1] // self.tp
+        cols = slice(self.mesh.t * n, (self.mesh.t + 1) * n)
+        local = _nll(self.head(self.encode(cfg, toks, msk)), labs[:, cols], msk[:, cols])
+        host = self.mesh.host_comm
+        count = C.all_reduce(msk[:, cols].float().sum().reshape(1), None, host)[0]
+        return C.from_group(local, None, host) / torch.clamp(count, min=1.0)
+
+    def reduce_grads(self) -> None:
+        """Sum each leaf's gradient over the ranks GRAD_REDUCE names, one
+        all-reduce of the concatenated gradients per group (a leaf without
+        a gradient takes zeros, so every rank sends the same sizes)."""
+        for kind, group in (("dp", self.mesh.dp_group), ("world", None)):
+            leaves = [self.leaf(n) for n in self.specs if GRAD_REDUCE[_leaf_name(n)] == kind]
+            if not leaves or C.group_size(group) == 1:
+                continue
+            for p in leaves:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            flat = C.all_reduce(torch.cat([p.grad.reshape(-1) for p in leaves]), group, self.mesh.host_comm)
+            for p, g in zip(leaves, flat.split([p.numel() for p in leaves])):
+                p.grad.copy_(g.view_as(p))
+
+    def residue_logits(self, cfg, tokens, mask) -> torch.Tensor:
+        """models/prostt5.py::residue_logits over the process mesh: (B, L,
+        n_classes) float32 on every rank, each rank's (B / dp, L / tp)
+        block all-gathered."""
+        from unicore_tpu_torch.models.prostt5 import TOK_PREFIX
+
+        toks, msk = self.block(tokens).long(), self.block(mask).bool()
+        lg = self.head(self.encode(cfg, toks, msk), (toks < TOK_PREFIX) & msk)
+        host = self.mesh.host_comm
+        rows = torch.cat(C.all_gather(lg.contiguous(), self.mesh.tp_group, host), dim=1)
+        return torch.cat(C.all_gather(rows, self.mesh.dp_group, host), dim=0)
+
+
+def shard_params(state: Dict[str, torch.Tensor], mesh: Union[Mesh, ProcessMesh]):
+    """`state` (models/prostt5.py names) split over `mesh` by param_pspecs:
+    a ShardedProstT5 over a one-process Mesh, this rank's
+    RankShardedProstT5 over a ProcessMesh (every rank passes the whole
+    state and keeps its part).  Raises where tp does not divide n_heads
+    or d_ff."""
+    if isinstance(mesh, ProcessMesh):
+        return RankShardedProstT5(state, mesh)
     return ShardedProstT5(state, mesh)
 
 
-def gather_state(sharded: ShardedProstT5, grad: bool = False, names=None) -> Dict[str, torch.Tensor]:
+def gather_state(sharded, grad: bool = False, names=None) -> Dict[str, torch.Tensor]:
     """A copy of the state of `sharded` on the host, its tp slices joined:
     every tensor, or those in `names` (with `grad`, the leaves' gradients
-    instead; None where a leaf has none)."""
+    instead; None where a leaf has none).  Of a RankShardedProstT5 every
+    rank must call it: the slices are all-gathered over the tp group, and
+    every rank gets the whole tensors (a split leaf's gradient after
+    reduce_grads is the same on every rank of a dp group)."""
     out = {}
     for name, spec in sharded.specs.items():
         if names is not None and name not in names:
+            continue
+        if isinstance(sharded, RankShardedProstT5):
+            x = sharded.leaf(name).grad if grad else sharded.leaf(name)
+            if x is None:
+                out[name] = None
+                continue
+            parts = C.all_gather(x, sharded.mesh.tp_group, sharded.mesh.host_comm) if spec else [x]
+            parts = [p.detach().to("cpu", copy=True) for p in parts]
+            out[name] = torch.cat(parts, dim=spec.index("tp")) if spec else parts[0]
             continue
         if spec:
             leaves = [sharded.slices[t][_key(name)] for t in range(sharded.tp)]
@@ -251,11 +434,16 @@ def loss_fn(model, cfg, tokens, mask, labels) -> torch.Tensor:
     over the whole batch, as a 0-d float32 tensor that takes gradients.
 
     `model` is a trainable models/prostt5.py::ProstT5 (one device; the
-    inputs go to its device) or a ShardedProstT5 (its mesh: tokens, mask
-    and labels (B, L), B a multiple of dp and L of tp)."""
+    inputs go to its device), a ShardedProstT5 (its mesh: tokens, mask
+    and labels (B, L), B a multiple of dp and L of tp) or a
+    RankShardedProstT5 (every rank passes the whole batch and computes
+    its block; the loss is the same on every rank, and each rank's
+    backward gives its part of the gradients until reduce_grads)."""
     from unicore_tpu_torch.models.prostt5 import full_precision, train_logits
 
     with full_precision():
+        if isinstance(model, RankShardedProstT5):
+            return model.loss(cfg, tokens, mask, labels)
         if isinstance(model, ShardedProstT5):
             total = model.nll_sum(cfg, tokens, mask, labels)
             count = torch.as_tensor(mask).to(total.device).float().sum()
@@ -267,7 +455,7 @@ def loss_fn(model, cfg, tokens, mask, labels) -> torch.Tensor:
         return total / torch.clamp(count, min=1.0)
 
 
-def make_train_step(cfg, mesh: Optional[Mesh] = None, lr: float = 1e-4):
+def make_train_step(cfg, mesh: Union[Mesh, ProcessMesh, None] = None, lr: float = 1e-4):
     """(step, init_opt), the counterpart of JAX's make_train_step.
 
     init_opt(model) -> the optimizer of a model from shard_params(...,
@@ -277,7 +465,12 @@ def make_train_step(cfg, mesh: Optional[Mesh] = None, lr: float = 1e-4):
     products without TF32).  The update is torch.optim.Adam with betas
     (0.9, 0.999) and eps 1e-8, which computes optax.adam(lr)'s function:
     bias-corrected moments, p -= lr m̂ / (√v̂ + eps); after a step the
-    leaves' .grad hold its gradients."""
+    leaves' .grad hold its gradients.
+
+    Over a ProcessMesh every rank calls step on its RankShardedProstT5
+    with the whole batch; between the backward and the update
+    reduce_grads sums the gradients by GRAD_REDUCE, so the replicated
+    leaves take identical updates on every rank."""
 
     from unicore_tpu_torch.models.prostt5 import full_precision
 
@@ -291,13 +484,15 @@ def make_train_step(cfg, mesh: Optional[Mesh] = None, lr: float = 1e-4):
             opt.zero_grad(set_to_none=True)
             loss = loss_fn(model, cfg, tokens, mask, labels)
             loss.backward()
+            if isinstance(model, RankShardedProstT5):
+                model.reduce_grads()
             opt.step()
         return loss.item()
 
     return step, init_opt
 
 
-def make_sharded_predict(cfg, model, mesh: Mesh) -> Callable[[np.ndarray, np.ndarray], np.ndarray]:
+def make_sharded_predict(cfg, model, mesh: Union[Mesh, ProcessMesh]) -> Callable[[np.ndarray, np.ndarray], np.ndarray]:
     """run(tokens (B, L), mask (B, L)) -> (B, L) 3Di codes on the host,
     the rows split over the mesh's "dp" axis (B a multiple of its size).
 
@@ -305,12 +500,17 @@ def make_sharded_predict(cfg, model, mesh: Mesh) -> Callable[[np.ndarray, np.nda
     through `predict_3di_codes` on its device's replica of the model (a
     logical mesh of several shards of one card holds one).  With tp > 1,
     or a ShardedProstT5 `model`, through the sharded encoder and the
-    sequence-parallel head (L a multiple of tp), in the model's dtype."""
+    sequence-parallel head (L a multiple of tp), in the model's dtype.
+    Over a ProcessMesh every rank calls run with the whole batch, computes
+    its block through its RankShardedProstT5 (`model`, or this rank's
+    part of a ProstT5's state) and returns every code, as JAX's predict
+    does on a mesh that spans processes."""
     from unicore_tpu_torch.models.prostt5 import build_model, full_precision, predict_3di_codes
 
     tp = mesh.shape.get("tp", 1)
-    if tp > 1 or isinstance(model, ShardedProstT5):
-        sharded = model if isinstance(model, ShardedProstT5) else shard_params(model.state_dict(), mesh)
+    if tp > 1 or isinstance(mesh, ProcessMesh) or isinstance(model, (ShardedProstT5, RankShardedProstT5)):
+        sharded = (model if isinstance(model, (ShardedProstT5, RankShardedProstT5))
+                   else shard_params(model.state_dict(), mesh))
 
         def run_sharded(tokens: np.ndarray, mask: np.ndarray) -> np.ndarray:
             with full_precision(), torch.inference_mode():

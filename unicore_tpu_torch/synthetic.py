@@ -14,7 +14,8 @@ inputs).  `sw_edge_pairs` makes
 Smith-Waterman inputs at the edges of the kernel's mapping, `nw_scores`
 score batches for the NW forward (ops/nw_device.py).
 `prostt5_hf_tensors` and `write_prostt5_json` make a ProstT5 checkpoint
-in the real HF layout from random weights (models/prostt5.py loads it).
+in the real HF layout from random weights (models/prostt5.py loads it);
+`prostt5_train_state` draws a float32 state to train on a device.
 """
 
 from __future__ import annotations
@@ -353,6 +354,35 @@ def prostt5_hf_tensors(cfg, draw, rows=PROSTT5_VOCAB_ROWS, classifier=True):
         t["classifier.3.weight"] = w(cfg.n_classes, H, K, 1)
         t["classifier.3.bias"] = draw((cfg.n_classes,), 0.1, 0.0)
     return t
+
+
+def prostt5_train_state(cfg, seed: int, device):
+    """A float32 ProstT5 state (models/prostt5.py names) at `cfg`'s
+    geometry drawn on `device` from a seeded torch.Generator, as
+    prostt5_hf_tensors draws: products and convolutions fan-in scaled,
+    RMSNorm weights 1 + 0.1 N(0, 1), embedding N(0, 1), rel_bias 0.5 N(0,
+    1), conv biases 0.1 N(0, 1).  The same seed gives the same state on
+    the same kind of device, in any process."""
+    import torch
+
+    from unicore_tpu_torch.models.prostt5 import ProstT5
+
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in ProstT5(cfg, cfg.ff == "gated-gelu").state_dict().items()}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = {}
+    for name, shape in shapes.items():
+        x = torch.randn(*shape, generator=gen, device=device)
+        if name.endswith("ln1.weight") or name.endswith("ln2.weight") or name.endswith("final_ln.weight"):
+            x = x.mul_(0.1).add_(1.0)
+        elif name.endswith("bias"):
+            x = x.mul_(0.1)
+        elif name == "encoder.rel_bias.weight":
+            x = x.mul_(0.5)
+        elif name != "encoder.embed.weight":
+            x = x.mul_(float(np.prod(shape[1:])) ** -0.5)
+        state[name] = x
+    return state
 
 
 def write_prostt5_json(path, cfg, prefix_id=None, rows=PROSTT5_VOCAB_ROWS):
