@@ -7,8 +7,9 @@ Phases, in order; the run stops with a non-zero exit at the first
 failure, and no phase is skipped:
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the time to build the Smith-Waterman kernel (csrc/sw.cu) from the
-   sources of this checkout.
+   and the time to build the Smith-Waterman kernel (csrc/sw.cu) and the
+   banded one (csrc/banded.cu) from the sources of this checkout (one
+   nvcc per source, started together).
 2. Kernel vs plain version on the card, bit-exact on (best, qend, tend):
    gapped with gap_window 64 and 0, and ungapped; bias off, on and at
    exactly +-bias_clip_bound; gaps 100/10 and 28/3; (B, L) in (512, 128),
@@ -19,6 +20,19 @@ failure, and no phase is skipped:
    synthetic.sw_edge_pairs (lengths of 1, ties, a gap bonus, a bias past
    2^24, ...) and windows 0, 1, 2, 3, 48, 64, 100, Lt, 2*Lt and ungapped,
    half of them on each shape, alternating.
+2b. The banded kernel (csrc/banded.cu, ops/banded_cuda.py) vs its plain
+   version (ops/banded.py) on the card, bit-exact on (best, qend, tend):
+   BANDED_GRID (W 33 to 2,048, one to four warps a pair, an odd W and
+   one wider than the target) x every case of synthetic.banded_edge_pairs
+   (seed diagonals planted, partly left of the target, off its end and
+   wholly outside the matrix; lengths of 1, ties, a gap bonus, a negative
+   gap extend, |qc| past 2^24), two of gap_window 64, 0 and ungapped per
+   case, bias off on every other one, gaps 28/3 on the ragged case;
+   gap windows 1, 3, 16, 100 and 1,024 (every E-window mode) at W 256,
+   2,048 and 4,096; the engine's full batches (BANDED_ENGINE: 64 x 2,048
+   x 2,048 at W 256, 32 x 2,048 x 1,024 at 512, 8 x 2,048 x 2,048 at
+   2,048) in both engine modes; W = 8,192, the kernel's limit, and
+   W = 8,193 refused.
 3. Times per shape and mode (CUDA events around a run of back-to-back
    launches, divided by their number, after a warm-up): kernel ms and
    GCUPS, the plain version's ms on the card, the bound, and the kernel's
@@ -31,6 +45,11 @@ failure, and no phase is skipped:
    bytes = every input read once and every output written once, over
    3.35 TB/s (H100 SXM HBM3).  No single PyTorch call computes SW, so
    library_ms is null.
+3e. The banded kernel per engine mode (gap_window 64 and ungapped, bias
+   on) at the engine's full batches (BANDED_ENGINE; the JSON line takes
+   BANDED_TIMED, the full batch at bucket 2,048 with the default band:
+   64 pairs, Lq = Lt = 2,048, W 256): kernel ms, the plain version's ms on the card, and the bound
+   by phase 3's rule on the band cells sum(qlen * W).
 3b. The MSA's NW forward (ops/nw_device.py, PyTorch ops) on the card
    against the same function on the CPU, bit-identical on (bits, end_i,
    end_j, score): buckets 64, 512 and 2,048, batches of 1 and 64 (16 at
@@ -76,8 +95,10 @@ failure, and no phase is skipped:
    `createdb mock`, `cluster`, `profile` and `tree -n` (foldmason) run as
    `python -m unicore_tpu_torch` subprocesses with a fresh HOME (so the
    E-value calibration runs on the kernel).  Prints the stage times, the
-   pipeline and MSA counts and the kernel's launches in that run; requires
-   both modes launched, a cluster purity against the generating families
+   pipeline and MSA counts, banded.seconds with its split (seed vote,
+   packing, device) and the kernels' launches in that run; requires both
+   modes of both kernels launched, every banded batch through the banded
+   kernel, a cluster purity against the generating families
    of at least PURITY_FLOOR, a filtered MSA for every core gene whose rows
    ungapped are the gene's input sequences, and a supermatrix with one row
    per species whose partitions tile its width.  Then `tree` again on the
@@ -194,8 +215,9 @@ failure, and no phase is skipped:
        the plain version's, and its bound (the shards' bounds summed over
        the distinct devices).
    9b. `sw_forward_banded_sharded` (32 pairs at bucket 1,024, W 256,
-       gapped and ungapped) and `nw_forward_bits_sharded` (64 pairs at
-       bucket 512) bit-identical to one call each.
+       gapped and ungapped; one banded kernel launch per shard) against
+       one call of the plain version, and `nw_forward_bits_sharded` (64
+       pairs at bucket 512) against one call, bit-identical.
    9c. Under TF32 settings, `loglik_batch` and `site_loglik_batch` with
        mesh= on phase 3c's 64 candidates and `_loglik_multi_sharded` on 3
        genes at 3c's width x 8 candidates against one device, within rtol
@@ -255,18 +277,20 @@ failure, and no phase is skipped:
 Order of the run: phase 5's CPU run (6b's CPU run beside its easy-core;
 then three sides, each in one process: 7c and 6d; tree -T raxml-ng and
 tree -T fasttree; the two other aligners and 7b) starts first, on every
-core but two, and goes on beside phase 1, the checks of phases 2, 3b, 3c
+core but two, and goes on beside phase 1, the checks of phases 2, 2b, 3b, 3c
 and 3d, then 6a and 6e (in a thread of their own) beside phase 5's CUDA
 run (6b beside its easy-core; then two sides, each in one process:
 raxml-ng, 7c and 6d; the rest and 7b), all on those two.  Once it has
-ended, phase 3 and the times of phases 3b, 3c and 3d, phase 4, 7a and 7d
+ended, phase 3 and the times of phases 3b, 3c, 3d and 3e, phase 4, 7a and 7d
 run with nothing beside them, then 6c, 8a, 8b, 9 and 10 (9e's and 10f-i's
 ranks beside 9d; 10f-ii alone).  Each phase's start and end on
 the script's clock is printed as a "[clock]" line.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel mode: launches in phase 4 and 7a, times and bound at (512, 512),
-the main path's most common bucket; 6a prints the cascade's launches;
+the main path's most common bucket, and for the banded kernel 3e's at
+BANDED_TIMED; 6a
+prints the cascade's launches;
 phases 8 and 10 add no kernel: the ProstT5 model is PyTorch ops; a row
 for the sharded route: 9d's launches, 9a's times and bound);
 the last line is
@@ -300,6 +324,13 @@ OPS_PER_CELL = {"gapped": 14, "ungapped": 6}  # +1 with the bias add
 LANES_PER_SM = 128      # FP32 lanes of a Hopper SM
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_SHAPE = (512, 512)
+# 2b: the banded kernel's (B, Lq, Lt, W), as tests/test_torch_banded_cuda.py: single and
+# multi-warp bands, an odd W and a W wider than the target
+BANDED_GRID = [(64, 256, 256, 128), (32, 512, 600, 256), (16, 700, 500, 512), (8, 300, 2100, 1024),
+               (4, 200, 3000, 2048), (8, 150, 120, 33), (8, 100, 90, 300)]
+BANDED_ENGINE = [(64, 2048, 2048, 256), (32, 2048, 1024, 512), (8, 2048, 2048, 2048)]  # the engine's full batches
+BANDED_WINDOWS = [1, 3, 16, 100, 1024]  # 2b: E windows inside a lane, across lanes and across warps
+BANDED_TIMED = (64, 2048, 2048, 256)  # 3e: the engine's full batch at bucket 2,048, default band
 # (B, Lq, Lt) at the edges of the kernel's mapping: a lane, a warp of 32*C
 # columns (C = 4, 8, 16) and one past it, 2 to 8 warps per pair
 EDGE_SHAPES = [(13, 100, 1), (5, 64, 31), (13, 40, 33), (64, 80, 65), (5, 300, 129),
@@ -560,13 +591,14 @@ def cli_chain(steps, out_dir, chain):
     seconds of each call go to {chain}.times.json and the chain's own
     (empty) counters to {chain}.counters.json."""
     from unicore_tpu_torch.cli import main
-    from unicore_tpu_torch.ops import sw_cuda
+    from unicore_tpu_torch.ops import banded_cuda, sw_cuda
     from unicore_tpu_torch.runtime import profiling
 
     times = {}
     for stage, argv in steps:
         profiling.reset_counters()
         sw_cuda.reset_launch_counts()
+        banded_cuda.reset_launch_counts()
         os.environ["UNICORE_TPU_TORCH_COUNTERS"] = os.path.join(out_dir, f"{stage}.counters.json")
         t0 = time.perf_counter()
         rc = main([*argv, "-v", "2"])
@@ -769,7 +801,7 @@ def phase_env():
     import torch
 
     from unicore_tpu_torch.matrices import get_3di_matrix, get_aa_matrix
-    from unicore_tpu_torch.ops import sw_cuda
+    from unicore_tpu_torch.ops import banded_cuda, sw_cuda
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -782,8 +814,12 @@ def phase_env():
         f"{props.multi_processor_count} SMs, max SM clock {clock} MHz, "
         f"peak scalar rate {peak_ops / 1e12:.2f} Tops/s")
     log(f"host: {host_cpu()}; torch CPU kernels {torch.backends.cpu.get_cpu_capability()}")
-    build_s = sw_cuda.build()
-    log(f"[phase 1] kernel built from {os.path.relpath(sw_cuda.SOURCE, ROOT)} in {build_s:.1f} s")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        builds = [(mod, pool.submit(mod.build)) for mod in (sw_cuda, banded_cuda)]
+        for mod, fut in builds:
+            log(f"[phase 1] kernel built from {os.path.relpath(mod.SOURCE, ROOT)} in {fut.result():.1f} s")
+    log(f"[phase 1] both kernels built in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
     saa_np = get_aa_matrix().astype(np.float32)
     s3d_np = get_3di_matrix().astype(np.float32)
@@ -845,6 +881,125 @@ def phase_exact(ctx):
     log(f"[phase 2] {n_cmp} kernel-vs-plain comparisons bit-exact on (best, qend, tend) "
         f"in {time.perf_counter() - t0:.1f} s")
     return max_err
+
+
+def band_pairs_on(arrays, dev):
+    import torch
+
+    return [None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrays]
+
+
+def phase_banded_exact(ctx):
+    """Phase 2b: the banded kernel (csrc/banded.cu) vs its plain version
+    (ops/banded.py::sw_forward_banded) on the card, bit-exact on (best,
+    qend, tend): BANDED_GRID x every case of synthetic.banded_edge_pairs
+    (seed diagonals planted, partly outside, off the end and wholly
+    outside; ties, a gap bonus, a negative gap extend, |qc| past 2^24,
+    lengths of 1), two of the three modes (gap_window 64, 0, ungapped)
+    each, bias off on every other one, and gaps 28/3 on the ragged case;
+    the windows of BANDED_WINDOWS at one, four and eight warps a pair; the
+    engine's full batches (BANDED_ENGINE) in both engine modes; the
+    widest band, and one past it refused.  Returns the largest |best|
+    difference per mode (0 when exact)."""
+    import torch
+
+    from unicore_tpu_torch.ops import banded_cuda
+    from unicore_tpu_torch.ops.banded import sw_forward_banded
+    from unicore_tpu_torch.synthetic import BANDED_EDGE_CASES, banded_edge_pairs
+
+    dev, saa, s3d = ctx["dev"], ctx["saa"], ctx["s3d"]
+    max_err = {"gapped": 0.0, "ungapped": 0.0}
+    n_cmp = 0
+    t0 = time.perf_counter()
+
+    def held(arrays, kw, what):
+        nonlocal n_cmp
+        t = band_pairs_on(arrays, dev)
+        k = banded_cuda.sw_forward_banded_cuda(*t[:7], saa, s3d, qc=t[7], **kw)
+        p = sw_forward_banded(*t[:7], saa, s3d, qc=t[7], **kw)
+        torch.cuda.synchronize()
+        kind = "ungapped" if kw.get("ungapped") else "gapped"
+        err = float((k[0] - p[0]).abs().max())
+        max_err[kind] = max(max_err[kind], err)
+        check(all(torch.equal(a, b) for a, b in zip(k, p)),
+              f"2b: banded kernel != plain at {what} {kw}: max |best| err {err}, qend diff "
+              f"{int((k[1] != p[1]).sum())}, tend diff {int((k[2] != p[2]).sum())}")
+        n_cmp += 1
+        return k
+
+    modes = [dict(gap_window=64), dict(gap_window=0), dict(ungapped=True)]
+    for s, (B, Lq, Lt, W) in enumerate(BANDED_GRID):
+        for n, case in enumerate(BANDED_EDGE_CASES):
+            arrays, go, ge = banded_edge_pairs(ctx["rng"], case, B, Lq, Lt, W)
+            if (s + n) % 2:
+                arrays = (*arrays[:7], None)
+            for m in ((s + n) % 3, (s + n + 1) % 3):
+                held(arrays, dict(W=W, go=go, ge=ge, **modes[m]), f"B={B} Lq={Lq} Lt={Lt} case={case}")
+            if case == "ragged":
+                held(arrays, dict(W=W, go=28.0, ge=3.0, gap_window=64), f"B={B} Lq={Lq} Lt={Lt} 28/3")
+    for window in BANDED_WINDOWS:
+        for B, Lq, Lt, W in ((8, 200, 300, 256), (4, 150, 2100, 2048), (2, 60, 4200, 4096)):
+            arrays, go, ge = banded_edge_pairs(ctx["rng"], "neg_ge" if window % 2 else "ragged", B, Lq, Lt, W)
+            held(arrays, dict(W=W, go=go, ge=ge, gap_window=window), f"B={B} Lq={Lq} Lt={Lt}")
+    for B, Lq, Lt, W in BANDED_ENGINE:
+        arrays = _band_pairs(ctx["rng"], B, Lq, Lt)
+        for kw in (dict(gap_window=64), dict(ungapped=True)):
+            best = held(arrays, dict(W=W, **kw), f"the engine's batch B={B} Lq={Lq} Lt={Lt}")[0]
+            check(float(best.min()) > 0, f"2b: a planted pair scored 0 at B={B} Lq={Lq} W={W}")
+    W = banded_cuda.MAX_W
+    arrays, go, ge = banded_edge_pairs(ctx["rng"], "ragged", 4, 48, W + 100, W)
+    for kw in modes:
+        held(arrays, dict(W=W, go=go, ge=ge, **kw), "the widest band")
+    t = band_pairs_on(arrays, dev)
+    try:
+        banded_cuda.sw_forward_banded_cuda(*t[:7], saa, s3d, W=W + 1)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"2b: a band of W = {W + 1} was not refused")
+    log(f"[phase 2b] {n_cmp} banded kernel-vs-plain comparisons bit-exact on (best, qend, tend), W up to "
+        f"{W} (W = {W + 1} refused), in {time.perf_counter() - t0:.1f} s")
+    return max_err
+
+
+def banded_bound(ctx, t, W, kind):
+    """(bound_ms, ops_ms, bytes_ms) of one banded launch on these inputs:
+    sum(qlen * W) band cells at OPS_PER_CELL (+1 for the bias add) over the
+    peak scalar rate; every input read once and every output written once
+    over HBM_BYTES_PER_S."""
+    Lq = t[0].shape[1]
+    cells = float(t[4].clamp(0, Lq).double().sum()) * W
+    ops_ms = cells * (OPS_PER_CELL[kind] + (t[7] is not None)) / ctx["peak_ops"] * 1e3
+    nbytes = sum(x.numel() * x.element_size() for x in t if x is not None) + 2 * 21 * 21 * 4 + t[0].shape[0] * 12
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms
+
+
+def phase_banded_times(ctx, reps=20):
+    """Phase 3e: the banded kernel per mode (the engine's: gap_window 64,
+    ungapped; bias on) at the engine's full batches (BANDED_ENGINE): kernel
+    ms (CUDA events over `reps` launches after a warm-up), the plain
+    version's ms on the card, and the bound; returns {kind: numbers} at
+    BANDED_TIMED."""
+    from unicore_tpu_torch.ops import banded_cuda
+    from unicore_tpu_torch.ops.banded import sw_forward_banded
+
+    saa, s3d = ctx["saa"], ctx["s3d"]
+    log(f"[phase 3e] banded SW, B Lq Lt W mode | kernel ms | plain ms | bound ms (ops, bytes) | share of bound "
+        f"({ctx['smi']})")
+    timing = {}
+    for B, Lq, Lt, W in BANDED_ENGINE:
+        t = band_pairs_on(_band_pairs(ctx["rng"], B, Lq, Lt), ctx["dev"])
+        for kind, kw in TIMED_MODES.items():
+            ms = time_cuda(lambda: banded_cuda.sw_forward_banded_cuda(*t[:7], saa, s3d, W=W, qc=t[7], **kw), reps)
+            plain_ms = time_cuda(lambda: sw_forward_banded(*t[:7], saa, s3d, W=W, qc=t[7], **kw), 1)
+            bound_ms, ops_ms, bytes_ms = banded_bound(ctx, t, W, kind)
+            if (B, Lq, Lt, W) == BANDED_TIMED:
+                timing[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+            log(f"  {B:3d} {Lq:5d} {Lt:5d} {W:5d} {kind:8s} | {ms:9.4f} | {plain_ms:9.2f} | {bound_ms:.4f} "
+                f"({ops_ms:.4f}, {bytes_ms:.5f}) | {100 * bound_ms / ms:.2f} %")
+    return timing
 
 
 def phase_times(ctx, shapes=SHAPES, reps=50, plain_reps=2):
@@ -1210,14 +1365,16 @@ def phase_sw_bits_times(ctx, inputs):
 
 def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
     """Phase 4: createdb -> cluster -> profile -> tree -n at a real size;
-    returns the kernel's launches per mode in that run and the counters of
-    its inference."""
+    returns the kernels' launches per mode in that run ("gapped",
+    "ungapped" and the banded kernel's "banded.gapped", "banded.ungapped")
+    and the counters of its inference."""
     from unicore_tpu_torch import synthetic
-    from unicore_tpu_torch.ops import sw_cuda
+    from unicore_tpu_torch.ops import banded_cuda, sw_cuda
 
     # the main path runs in the CLI subprocesses below, whose counts start
     # at 0 and are read back from their counters files
     sw_cuda.reset_launch_counts()
+    banded_cuda.reset_launch_counts()
     in_dir = os.path.join(work, "proteomes")
     labels = synthetic.write_proteomes(in_dir, n_species, per_species, seed=7)
     lengths = []
@@ -1229,7 +1386,7 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
     out_dir = os.path.join(work, "main")
     times, counters = run_slice(in_dir, out_dir, os.path.join(work, "home_main"))
     c, t = counters["cluster"], counters["tree"]
-    launches = {k: int(c.get(f"kernel.sw.{k}.launches", 0)) for k in ("gapped", "ungapped")}
+    launches = kernel_launches(c)
     purity, n_clusters = synthetic.cluster_purity(out_dir, labels)
     genes, width, n_parts = check_tree(out_dir, n_species)
     for stage in ("createdb", "cluster", "profile", "tree"):
@@ -1239,7 +1396,9 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
         f"clusters {int(c['cluster.clusters'])}, core genes {len(genes)}")
     log(f"  align.cells {c['align.cells']:.4g}, rescore.cells {c['rescore.cells']:.4g}, "
         f"align.seconds {c['align.seconds']:.2f}, rescore.seconds {c['rescore.seconds']:.2f}, "
-        f"banded.seconds {c.get('banded.seconds', 0.0):.2f} (inside the two before), "
+        f"banded.seconds {c.get('banded.seconds', 0.0):.2f} (inside the two before: seed "
+        f"{c.get('banded.seed.seconds', 0.0):.2f}, pack {c.get('banded.pack.seconds', 0.0):.2f}, device "
+        f"{c.get('banded.device.seconds', 0.0):.2f}; {int(c.get('banded.launches', 0))} launches), "
         f"prefilter.featurize.seconds {c.get('prefilter.featurize.seconds', 0.0):.3f}, "
         f"stage.cluster.seconds {c['stage.cluster.seconds']:.2f}")
     log(f"  tree: genes aligned {len(genes)}, msa.cells {t['msa.cells']:.4g}, "
@@ -1249,11 +1408,26 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
         f"supermatrix {n_species} x {width}, {n_parts} partitions")
     log(f"  kernel launches {launches}; cluster purity {purity:.4f} over {n_clusters} clusters "
         f"(floor {PURITY_FLOOR})")
-    check(launches["gapped"] > 0 and launches["ungapped"] > 0,
-          f"the main path did not launch both kernel modes: {launches}")
+    check(all(launches[k] > 0 for k in launches), f"the main path did not launch every kernel mode: {launches}")
+    check_banded_route(c, launches, "phase 4")
     check(purity >= PURITY_FLOOR, f"cluster purity {purity:.4f} < {PURITY_FLOOR}")
     check(t["msa.dispatches"] > 0, "the tree stage ran no NW forward")
     return launches, phase_inference(work, out_dir, n_species)
+
+
+def kernel_launches(counters):
+    """{mode: launches} of both kernels in a CLI run's counters."""
+    out = {k: int(counters.get(f"kernel.sw.{k}.launches", 0)) for k in ("gapped", "ungapped")}
+    out.update({f"banded.{k}": int(counters.get(f"kernel.banded.{k}.launches", 0)) for k in ("gapped", "ungapped")})
+    return out
+
+
+def check_banded_route(counters, launches, what):
+    """Every banded batch the engine dispatched (`banded.launches`) went
+    through the banded kernel."""
+    n = int(counters.get("banded.launches", 0))
+    k = launches["banded.gapped"] + launches["banded.ungapped"]
+    check(n == k, f"{what}: {n} banded batches, {k} banded kernel launches")
 
 
 def phase_inference(work, out_dir, n_species):
@@ -1323,8 +1497,9 @@ def phase_search(ctx, work):
     selfs = {r[0]: (r[2], r[4], r[5]) for r in rows if r[0] == f"AF-{r[1]}-F1"}  # fident, mismatch, gapopen
     bad = [g for g in genes4 if selfs.get(f"AF-{g}-F1") != ("1.000", "0", "0")]
     check(not bad, f"7a: references without a self hit of fident 1.000, mismatch 0, gapopen 0: {bad[:5]}")
-    launches = {k: int(c.get(f"kernel.sw.{k}.launches", 0)) for k in ("gapped", "ungapped")}
+    launches = kernel_launches(c)
     check(launches["gapped"] > 0 and launches["ungapped"] > 0, f"7a did not launch both kernel modes: {launches}")
+    check_banded_route(c, launches, "7a")
     check(open(os.path.join(s_dir, "search", "search.chk")).read() == "1", "7a: search.chk does not read 1")
     n_long = sum(L > 1024 for L in lengths)
     check(n_long == 0 or c.get("traceback.banded", 0) > 0, "7a: no window took the banded traceback")
@@ -1429,7 +1604,7 @@ def cascade_step(db_path, tsv, threshold):
     from unicore_tpu_torch.align.engine import AlignParams
     from unicore_tpu_torch.io.seqdb import SeqDB
     from unicore_tpu_torch.modules.cluster import cluster_db
-    from unicore_tpu_torch.ops import sw_cuda
+    from unicore_tpu_torch.ops import banded_cuda, sw_cuda
     from unicore_tpu_torch.runtime import logging as msg
     from unicore_tpu_torch.runtime import profiling
 
@@ -1437,13 +1612,15 @@ def cascade_step(db_path, tsv, threshold):
     db = SeqDB.read(db_path, require_ss=True)
     profiling.reset_counters()
     sw_cuda.reset_launch_counts()
+    banded_cuda.reset_launch_counts()
     t0 = time.perf_counter()
     clusters, _ = cluster_db(db, AlignParams.from_options("-c 0.8"), cascade_threshold=threshold)
     seconds = time.perf_counter() - t0
     os.makedirs(os.path.dirname(tsv), exist_ok=True)
     write_cluster_tsv(tsv, clusters, db.names)
     counters = dict(profiling.get_counters(), **{f"kernel.sw.{k}.launches": v
-                                                 for k, v in sw_cuda.LAUNCHES.items()})
+                                                 for k, v in sw_cuda.LAUNCHES.items()},
+                    **{f"kernel.banded.{k}.launches": v for k, v in banded_cuda.LAUNCHES.items()})
     if os.environ.get("UNICORE_TPU_TORCH_COUNTERS"):
         profiling.dump(os.environ["UNICORE_TPU_TORCH_COUNTERS"], counters)
     return db, counters, seconds
@@ -1588,15 +1765,18 @@ def phase_cascade(ctx, work):
     check(sorted(members) == sorted(seqdb.names), "the cascade's clusters do not hold every sequence exactly once")
     purity, n_clusters = synthetic.cluster_purity(out, labels)
     launches = {k: int(c[f"kernel.sw.{k}.launches"]) for k in ("gapped", "ungapped")}
+    banded_launches = {k: int(c[f"kernel.banded.{k}.launches"]) for k in ("gapped", "ungapped")}
     log(f"[phase 6a] cascade (threshold {CASCADE_THRESHOLD}) on {len(seqdb)} sequences on CUDA, in process "
         f"(from {started:.1f} s to {clock():.1f} s on the script's clock, beside 6e and "
         f"phase 5's CUDA run): {seconds:.2f} s ({ctx['smi']}); canopy reps {int(c['cascade.reps'])}, verify pairs "
         f"{int(c['cascade.verify_pairs'])}, verified {int(c['cascade.verified'])}, rep-round pairs "
         f"{int(c['cascade.rep_pairs'])}, edges {int(c['cascade.rep_edges'])}, empirical null fitted "
         f"{int(c['cascade.empirical_null_fitted'])}; {n_clusters} clusters, purity {purity:.4f} "
-        f"(floor {PURITY_FLOOR}); kernel launches {launches}; align.seconds {c['align.seconds']:.2f}, "
+        f"(floor {PURITY_FLOOR}); kernel launches {launches}, banded {banded_launches}; align.seconds "
+        f"{c['align.seconds']:.2f}, "
         f"rescore.seconds {c['rescore.seconds']:.2f}, banded.seconds {c.get('banded.seconds', 0.0):.2f}")
     check(launches["gapped"] > 0 and launches["ungapped"] > 0, f"the cascade did not launch both modes: {launches}")
+    check_banded_route(c, {f"banded.{k}": v for k, v in banded_launches.items()}, "6a")
     check(purity >= PURITY_FLOOR, f"cascade purity {purity:.4f} < {PURITY_FLOOR}")
     log(f"[clock] phase 6a: {started:.1f} -> {clock():.1f} s")
     return dict(seconds=seconds, launches=launches, purity=purity, clusters=n_clusters)
@@ -2142,12 +2322,15 @@ def phase_sharded_sw(ctx, mesh):
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def _band_pairs(rng, B, L):
-    """B long pairs (bucket L): each target a shifted, mutated copy of its
-    query with two short indels; d0 from the engine's diagonal vote."""
+def _band_pairs(rng, B, L, Lt=None):
+    """B long pairs (query bucket L, target bucket Lt, default L): each
+    target a shifted, mutated copy of its query (cut to Lt) with a short
+    indel; d0 from the engine's diagonal vote."""
     from unicore_tpu_torch.ops.banded import vote_diagonal
 
-    qa, qs, ta, ts = (np.full((B, L), 20, np.int32) for _ in range(4))
+    Lt = L if Lt is None else Lt
+    qa, qs = (np.full((B, L), 20, np.int32) for _ in range(2))
+    ta, ts = (np.full((B, Lt), 20, np.int32) for _ in range(2))
     ql, tl, d0 = np.ones(B, np.int32), np.ones(B, np.int32), np.zeros(B, np.int32)
     for b in range(B):
         n = rng.randint(L // 2, L - 64)
@@ -2159,7 +2342,7 @@ def _band_pairs(rng, B, L):
         t_a[sub] = rng.randint(0, 20, len(sub))
         cut = rng.randint(shift + 20, len(t_a) - 20)
         t_a, t_s = np.delete(t_a, slice(cut, cut + 3)), np.delete(t_s, slice(cut, cut + 3))
-        t_a, t_s = t_a[:L], t_s[:L]
+        t_a, t_s = t_a[:Lt], t_s[:Lt]
         ql[b], tl[b] = n, len(t_a)
         qa[b, :n], qs[b, :n], ta[b, :len(t_a)], ts[b, :len(t_s)] = a, s, t_a, t_s
         d0[b] = vote_diagonal(a, s, t_a, t_s) or 0
@@ -2173,7 +2356,7 @@ def phase_sharded_banded_nw(ctx, mesh):
     bit-identical to one call of its single-device function on the card."""
     import torch
 
-    from unicore_tpu_torch.ops import banded, nw_device
+    from unicore_tpu_torch.ops import banded, banded_cuda, nw_device
     from unicore_tpu_torch.synthetic import nw_scores
 
     t0 = time.perf_counter()
@@ -2181,8 +2364,12 @@ def phase_sharded_banded_nw(ctx, mesh):
     B, L, W = BANDED_9B
     arrays = [torch.from_numpy(x).to(dev) for x in _band_pairs(ctx["rng"], B, L)]
     for kw in (dict(gap_window=64), dict(ungapped=True)):
+        kind = "ungapped" if kw.get("ungapped") else "gapped"
+        before = banded_cuda.LAUNCHES[kind]
         sh = banded.sw_forward_banded_sharded(*arrays[:7], saa, s3d, mesh, W=W, qc=arrays[7], **kw)
-        one = banded.sw_forward_banded(*arrays[:7], saa, s3d, W=W, qc=arrays[7], **kw)
+        check(banded_cuda.LAUNCHES[kind] - before == LOGICAL_SHARDS,
+              f"9b: sw_forward_banded_sharded made {banded_cuda.LAUNCHES[kind] - before} kernel launches")
+        one = banded.sw_forward_banded(*arrays[:7], saa, s3d, W=W, qc=arrays[7], **kw)  # plain, one call
         check(all(torch.equal(a, b) for a, b in zip(sh, one)), f"sw_forward_banded_sharded != one call, {kw}")
         check(float(one[0].max()) > 0, "9b: the banded pairs scored nothing")
     Bn, Ln = NW_9B
@@ -2191,8 +2378,8 @@ def phase_sharded_banded_nw(ctx, mesh):
     one = nw_device.nw_forward_bits(S, l1, l2, 2816, 256)
     check(all(torch.equal(a, b) for a, b in zip(sh, one)), "nw_forward_bits_sharded != one call")
     torch.cuda.synchronize()
-    log(f"[phase 9b] sw_forward_banded_sharded ({B} pairs, bucket {L}, W {W}; gapped and ungapped) and "
-        f"nw_forward_bits_sharded ({Bn} pairs, bucket {Ln}) on {LOGICAL_SHARDS} shards bit-identical to one "
+    log(f"[phase 9b] sw_forward_banded_sharded ({B} pairs, bucket {L}, W {W}; gapped and ungapped; one banded "
+        f"kernel launch per shard) against one plain call, and nw_forward_bits_sharded ({Bn} pairs, bucket {Ln}) on {LOGICAL_SHARDS} shards bit-identical to one "
         f"call each in {time.perf_counter() - t0:.1f} s")
 
 
@@ -2928,8 +3115,11 @@ def phase_crosscheck(ctx, work, small, cpu_run, t0):
         check(want in a, f"cross-check wrote no {want}")
     check(a["tree/tree.chk"] == b"1", "easy-core's tree.chk does not read 1")
     check(any(n.startswith("profile/") and n.endswith(".txt") for n in a), "cross-check found no core genes")
-    check(sum(int(cpu_counters["easy-core"].get(f"kernel.sw.{k}.launches", 0))
-              for k in ("gapped", "ungapped")) == 0, "the CPU run launched the kernel")
+    check(sum(int(cpu_counters["easy-core"].get(f"kernel.{n}.{k}.launches", 0))
+              for n in ("sw", "banded") for k in ("gapped", "ungapped")) == 0, "the CPU run launched a kernel")
+    banded = kernel_launches(cuda_counters["easy-core"])
+    check(banded["banded.gapped"] > 0 and banded["banded.ungapped"] > 0,
+          f"phase 5's long family did not go through the banded kernel on CUDA: {banded}")
     log(f"[phase 5] CUDA and CPU runs of easy-core, tree -n (mafft, mafft-linsi) and tree -T fasttree|raxml-ng "
         f"at {CROSS_SPECIES} x {CROSS_PER_SPECIES}: {len(a)} files, {len(a) - n_inf} byte-identical, "
         f"{n_inf} inference outputs within tolerance; {time.perf_counter() - t0:.1f} s since the CPU run "
@@ -2943,7 +3133,7 @@ def phase_crosscheck(ctx, work, small, cpu_run, t0):
 
 
 def checks_beside_cpu_run(work):
-    """Phase 1, the checks of phases 2, 3b, 3c and 3d, then 6a and 6e (in
+    """Phase 1, the checks of phases 2, 2b, 3b, 3c and 3d, then 6a and 6e (in
     a thread of their own) beside phase 5's CUDA run (with 6b, 6d, 7b and
     7c), on two cores, while phase 5's CPU run (a cross-check, timed
     by nothing) goes on on the others from the start.  Returns the
@@ -2961,6 +3151,8 @@ def checks_beside_cpu_run(work):
                 f"run on cores {sorted(fg)}")
             with span("phase 2"):
                 max_err = phase_exact(ctx)
+            with span("phase 2b"):
+                max_err.update({f"banded.{k}": v for k, v in phase_banded_exact(ctx).items()})
             with span("phase 3b, checks"):
                 inputs = dict(nw=phase_nw(ctx))
             with span("phase 3c, checks"):
@@ -2996,7 +3188,7 @@ def main() -> int:
     try:
         ctx, max_err, inputs = checks_beside_cpu_run(work)
         # from here on nothing runs beside the timed phases
-        log(f"[{clock():.1f} s] phases 3, 3b, 3c and 3d, timed ({ctx['smi']})")
+        log(f"[{clock():.1f} s] phases 3, 3b, 3c, 3d and 3e, timed ({ctx['smi']})")
         with span("phase 3, times"):
             timing = phase_times(ctx)
         with span("phase 3b, times"):
@@ -3005,6 +3197,8 @@ def main() -> int:
             phase_phylo_times(ctx, inputs["phylo"])
         with span("phase 3d, times"):
             phase_sw_bits_times(ctx, inputs["sw_bits"])
+        with span("phase 3e, times"):
+            banded_timing = phase_banded_times(ctx)
         with span("phase 4"):
             launches, inference = phase_slice(work)
         with span("phase 7a"):
@@ -3033,6 +3227,17 @@ def main() -> int:
             "source": "unicore_tpu_torch/csrc/sw.cu",
             "replaces": "unicore_tpu/ops/sw.py:183",
             "launches": launches[kind] + search_launches[kind], "max_abs_err": max_err[kind],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+        })
+    for kind in ("gapped", "ungapped"):
+        t = banded_timing[kind]
+        kernels.append({
+            "name": f"sw_forward_banded_{kind}", "route": "cuda",
+            "source": "unicore_tpu_torch/csrc/banded.cu",
+            "replaces": "unicore_tpu/ops/banded.py:210",
+            "launches": launches[f"banded.{kind}"] + search_launches[f"banded.{kind}"],
+            "max_abs_err": max_err[f"banded.{kind}"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })

@@ -15,7 +15,8 @@ Every full-matrix pass (rescore, forward, reverse and the calibration)
 goes through `_forward_batch`, which calls the Hopper kernel's wrapper
 (ops/sw_cuda.py): on a CUDA device it launches the kernel, on the CPU it
 runs the kernel's plain version.  Pairs longer than `long_threshold` take
-banded SW (ops/banded.py) in plain PyTorch on the same device.
+banded SW the same way, through the banded kernel's wrapper
+(ops/banded_cuda.py, plain version in ops/banded.py).
 
 `traceback_fill` (the m8 columns of `search`, and `--min-seq-id > 0`)
 runs its short windows' forward DPs on the engine's device through
@@ -372,16 +373,30 @@ class AlignmentEngine:
         Host k-mer diagonal vote -> width-W band around the seed diagonal
         -> device band scan, O(Lq*W) per pair.  Pairs with zero k-mer
         matches score 0 (nothing a 6-mer-free pair could contribute past
-        the gates).  Same dispatch-then-collect overlap as _sw_pass."""
-        from unicore_tpu_torch.ops.banded import (
-            sw_forward_banded, sw_forward_banded_sharded, vote_diagonal,
-        )
+        the gates).  Same dispatch-then-collect overlap as _sw_pass.
+
+        Counters: `banded.seconds` is the pass's host wall, split into
+        `banded.seed.seconds` (the diagonal votes and the seed-evidence
+        gate), `banded.pack.seconds` (padding and the copies to the device)
+        and `banded.device.seconds` (the full-SW fallback, dispatch and
+        collection); `banded.launches` counts the batches dispatched."""
+        from unicore_tpu_torch.ops.banded import sw_forward_banded_sharded, vote_diagonal
+        from unicore_tpu_torch.ops.banded_cuda import sw_forward_banded_cuda
         from unicore_tpu_torch.runtime import profiling
 
         p = self.params
         dev = self.device
         mesh = mesh_mod.local_mesh(dev)
-        t0 = __import__("time").time()
+        t0 = time.time()
+        split = {"seed": 0.0, "pack": 0.0, "device": 0.0}
+        lap = [t0]
+
+        def charge(part: str) -> None:
+            """Add the time since the last charge to `part`."""
+            now = time.time()
+            split[part] += now - lap[0]
+            lap[0] = now
+
         out: Dict[int, Tuple[float, int, int]] = {}
         buckets: Dict[Tuple[int, int, int], List[tuple]] = {}
         full_fallback: List[tuple] = []
@@ -415,11 +430,13 @@ class AlignmentEngine:
                     _round_up(abs(len(eqa) - len(eta)) + 128, 128))
             W = min(W, LT)  # a band wider than the target is the full matrix
             buckets.setdefault((LQ, LT, W), []).append((key, eqa, eqs, eta, ets, eqc, d0))
+        charge("seed")
         if full_fallback:
             out.update(self._sw_pass(
                 full_fallback, ungapped=ungapped, counter=counter,
                 split_long=False,
             ))
+        charge("device")
         inflight = []
         for (LQ, LT, W), items in sorted(buckets.items()):
             # the (B, LQ, W) f32 band tensor bounds the memory: cap ~128 MB
@@ -450,39 +467,39 @@ class AlignmentEngine:
                     d0[row] = ed
                     if qcb is not None and eqc is not None:
                         qcb[row, : ql[row]] = eqc
+                kw = dict(W=W, go=p.gap_open, ge=p.gap_extend, w_aa=p.w_aa, w_3di=p.w_3di,
+                          gap_window=p.gap_window, ungapped=ungapped)
                 if mesh is not None:
                     # several devices: pad to a multiple of them (d0 = 0 on
-                    # pad rows), as _forward_batch does
+                    # pad rows), as _forward_batch does; the shards' copies
+                    # are made inside the call
                     Bd = _round_up(B, mesh_mod.n_shards(mesh))
                     pad = mesh_mod.pad_rows
-                    res = sw_forward_banded_sharded(
-                        pad(qa, Bd, 20), pad(qs, Bd, 20), pad(ta, Bd, 20), pad(ts, Bd, 20),
-                        pad(ql, Bd, 1), pad(tl, Bd, 1), pad(d0, Bd, 0),
-                        self._saa_r, self._s3d_r, mesh,
-                        W=W, go=p.gap_open, ge=p.gap_extend,
-                        w_aa=p.w_aa, w_3di=p.w_3di,
-                        gap_window=p.gap_window, ungapped=ungapped,
-                        qc=None if qcb is None else pad(qcb, Bd, 0),
-                    )
+                    arrays = [pad(x, Bd, v) for x, v in ((qa, 20), (qs, 20), (ta, 20), (ts, 20),
+                                                         (ql, 1), (tl, 1), (d0, 0))]
+                    qcp = None if qcb is None else pad(qcb, Bd, 0)
+                    charge("pack")
+                    res = sw_forward_banded_sharded(*arrays, self._saa_r, self._s3d_r, mesh,
+                                                    qc=qcp, **kw)
                 else:
-                    res = sw_forward_banded(
-                        _as_i32(qa, dev), _as_i32(qs, dev), _as_i32(ta, dev), _as_i32(ts, dev),
-                        _as_i32(ql, dev), _as_i32(tl, dev), _as_i32(d0, dev),
-                        self._saa_t, self._s3d_t,
-                        W=W, go=p.gap_open, ge=p.gap_extend,
-                        w_aa=p.w_aa, w_3di=p.w_3di,
-                        gap_window=p.gap_window, ungapped=ungapped,
-                        qc=None if qcb is None else _as_i32(qcb, dev),
-                    )
+                    arrays = [_as_i32(x, dev) for x in (qa, qs, ta, ts, ql, tl, d0)]
+                    qct = None if qcb is None else _as_i32(qcb, dev)
+                    charge("pack")
+                    res = sw_forward_banded_cuda(*arrays, self._saa_t, self._s3d_t, qc=qct, **kw)
                 inflight.append((chunk, res))
                 profiling.add_counter(f"{counter}.cells", float(B) * LQ * W)
+                profiling.add_counter("banded.launches", 1.0)
+                charge("device")
         for chunk, res in inflight:
             b, qe, te = (_to_host(x) for x in res)
             for row, e in enumerate(chunk):
                 out[e[0]] = (float(b[row]), int(qe[row]), int(te[row]))
+        charge("device")
         # host wall time, seeding and collection included (a share of
-        # {counter}.seconds)
-        profiling.add_counter("banded.seconds", __import__("time").time() - t0)
+        # {counter}.seconds); the three parts sum to it
+        for part, sec in split.items():
+            profiling.add_counter(f"banded.{part}.seconds", sec)
+        profiling.add_counter("banded.seconds", lap[0] - t0)
         return out
 
     # ------------------------------------------------------------------

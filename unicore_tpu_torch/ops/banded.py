@@ -21,7 +21,9 @@ the original (i, j) coordinates.
 
 `sw_forward_banded` is plain PyTorch on the pair batch's device (the JAX
 function is XLA code, not a Pallas kernel), in the JAX function's float32
-operation order: bit-identical to it on the same inputs.  The host
+operation order: bit-identical to it on the same inputs.  It is the plain
+version of the kernel in csrc/banded.cu (ops/banded_cuda.py), which runs
+the engine's banded batches on a card.  The host
 traceback of a long window (`band_scores_ref`, `sw_traceback_banded_ref`:
 numpy float64 with NEG = -1e9, the m8 fill of align/engine.py's
 `traceback_fill`) is a copy of the JAX package's.
@@ -200,6 +202,30 @@ def has_seed_evidence(
     )
 
 
+def row_limit(qlen, saa, s3d, W, go, ge, w_aa, w_3di, ungapped, qc, Lq) -> int:
+    """Rows `sw_forward_banded` runs: up to the batch's longest qlen where
+    the rows past it cannot change a result, else all Lq.  Rows past qlen
+    score NEG: in the ungapped mode max(0, H + NEG) never passes an earlier
+    H; in the gapped mode nothing can pass the best when the DP is exact
+    (csrc/banded.cu's exact_dp): both weighted matrices integer-valued, go
+    and ge integers >= 0, and qlen*(max|aa| + max|3di| + max|qc|) + W*ge +
+    go + ge < 2^24, so every non-negative value is an exact integer."""
+    top = int(qlen.clamp(0, Lq).max()) if qlen.numel() else 0
+    if ungapped:
+        return top
+    aa, s3 = w_aa * saa.float(), w_3di * s3d.float()
+    go32, ge32 = float(np.float32(go)), float(np.float32(ge))
+    if not (torch.equal(aa, aa.round()) and torch.equal(s3, s3.round()) and go32 >= 0 and ge32 >= 0
+            and go32.is_integer() and ge32.is_integer()):
+        return Lq
+    qmax = 0.0
+    if qc is not None and top:
+        rows = torch.arange(Lq, device=qc.device)[None, :] < qlen[:, None]
+        qmax = float(torch.where(rows, qc.double().abs(), 0.0).max())
+    bound = top * (float(aa.abs().max()) + float(s3.abs().max()) + qmax) + W * ge32 + go32 + ge32
+    return top if bound < 2.0 ** 24 else Lq
+
+
 def sw_forward_banded(
     qa: torch.Tensor,    # (B, Lq) int32 AA codes (pad with X=20)
     qs: torch.Tensor,    # (B, Lq) int32 3Di codes
@@ -222,7 +248,8 @@ def sw_forward_banded(
     """(best, qend, tend) per pair over the band j in [i+d0-W/2, i+d0+W/2).
 
     Identical scoring/tie semantics to sw_forward_xla restricted to the
-    band; exact vs full SW whenever the optimum stays inside it."""
+    band; exact vs full SW whenever the optimum stays inside it.  The rows
+    past the batch's longest qlen are skipped where `row_limit` allows."""
     B, Lq = qa.shape
     Lt = ta.shape[1]
     W2 = W // 2
@@ -247,7 +274,7 @@ def sw_forward_banded(
     best = torch.zeros((B,), dtype=torch.float32, device=dev)
     bi = torch.zeros((B,), dtype=torch.int32, device=dev)
     bk = torch.zeros((B,), dtype=torch.int32, device=dev)
-    for i in range(Lq):
+    for i in range(row_limit(qlen, saa, s3d, W, go, ge, w_aa, w_3di, ungapped, qc, Lq)):
         s_row = s[:, i, :]
         if ungapped:
             # per-diagonal Kadane chain: in band coords a diagonal IS a
@@ -289,16 +316,20 @@ def sw_forward_banded_sharded(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Banded forward data-parallel over the devices of `mesh`'s first
     axis (the long-pair analog of ops/sw_cuda.py::sw_forward_sharded):
-    one block of pairs per device, each through `sw_forward_banded` on
-    its device; bit-identical to one call on the whole batch.  B must be
-    a multiple of the number of shards (align/engine.py pads).  Results
-    come back in input order on the first shard's device."""
+    one block of pairs per device, each through
+    `ops/banded_cuda.py::sw_forward_banded_cuda` on its device (the kernel
+    on a card, the plain version on the CPU); bit-identical to one call on
+    the whole batch.  B must be a multiple of the number of shards
+    (align/engine.py pads).  Results come back in input order on the first
+    shard's device."""
+    from unicore_tpu_torch.ops.banded_cuda import sw_forward_banded_cuda
+
     devices = shard_devices(mesh)
     blocks = [shard(x, devices, torch.int32) for x in (qa, qs, ta, ts, qlen, tlen, d0)]
     qcs = [None] * len(devices) if qc is None else shard(qc, devices, torch.int32)
-    outs = [sw_forward_banded(*(b[k] for b in blocks), on_device(saa, dev).float(),
-                              on_device(s3d, dev).float(), W=W, go=go, ge=ge, w_aa=w_aa,
-                              w_3di=w_3di, gap_window=gap_window, ungapped=ungapped, qc=qcs[k])
+    outs = [sw_forward_banded_cuda(*(b[k] for b in blocks), on_device(saa, dev).float(),
+                                   on_device(s3d, dev).float(), W=W, go=go, ge=ge, w_aa=w_aa,
+                                   w_3di=w_3di, gap_window=gap_window, ungapped=ungapped, qc=qcs[k])
             for k, dev in enumerate(devices)]
     return tuple(gather([o[i] for o in outs], devices[0]) for i in range(3))
 

@@ -77,10 +77,10 @@ def _nvcc() -> str:
 
 def build_library(source: Path = SOURCE, flags: Tuple[str, ...] = NVCC_FLAGS) -> Path:
     """Compile `source` with nvcc into a shared library under BUILD_DIR,
-    named by a hash of the source and the flags; returns its path (an
-    existing build is reused)."""
+    named by the source's stem and a hash of the source and the flags;
+    returns its path (an existing build is reused)."""
     digest = hashlib.sha256(Path(source).read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"libsw_{digest}.so"
+    so = BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
     if not so.exists():
         so.parent.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)

@@ -11,7 +11,8 @@ species tree of a seed (the reference of an inferred tree).
 `cluster_purity` scores a `cluster` run against the generating families;
 `simulate_msa` makes an aligned MSA along a random tree (likelihood
 inputs).  `sw_edge_pairs` makes
-Smith-Waterman inputs at the edges of the kernel's mapping, `nw_scores`
+Smith-Waterman inputs at the edges of the kernel's mapping,
+`banded_edge_pairs` those of the banded kernel, `nw_scores`
 score batches for the NW forward (ops/nw_device.py).
 `prostt5_hf_tensors` and `write_prostt5_json` make a ProstT5 checkpoint
 in the real HF layout from random weights (models/prostt5.py loads it);
@@ -238,6 +239,37 @@ def sw_edge_pairs(rng, case, B, Lq, Lt):
     elif case == "big_bias":
         qc = rng.choice([-(1 << 25) - 3, (1 << 24) + 1, 5, -7], size=(B, Lq)).astype(np.int32)
     return (qa, qs, ta, ts, ql, tl, qc), go, ge
+
+
+BANDED_EDGE_CASES = SW_EDGE_CASES + ("neg_ge",)
+
+
+def banded_edge_pairs(rng, case, B, Lq, Lt, W):
+    """Banded SW inputs (ops/banded.py) at the edges of the banded kernel's
+    mapping; returns ((qa, qs, ta, ts, qlen, tlen, d0, qc), go, ge).
+
+    The cases of `sw_edge_pairs`, plus neg_ge (a negative gap extend:
+    H0 + j*ge falls along the row, so the left end of every E window
+    counts).  The seed diagonals cycle through four kinds: the planted
+    diagonal (0, jittered), anywhere within a band's width of it (the band
+    partly left of the target), near tlen (the band running off its right
+    end), and wholly outside the matrix."""
+    (qa, qs, ta, ts, ql, tl, qc), go, ge = sw_edge_pairs(
+        rng, "ragged" if case == "neg_ge" else case, B, Lq, Lt)
+    if case == "neg_ge":
+        go, ge = 30.0, -3.0
+    d0 = np.zeros(B, dtype=np.int32)
+    for b in range(B):
+        kind = b % 4
+        if kind == 0:
+            d0[b] = rng.randint(-4, 5)
+        elif kind == 1:
+            d0[b] = rng.randint(-W, W + 1)
+        elif kind == 2:
+            d0[b] = tl[b] - rng.randint(0, W + 1)
+        else:
+            d0[b] = Lt + W + rng.randint(0, 50) if b % 8 == 3 else -(Lq + W) - rng.randint(0, 50)
+    return (qa, qs, ta, ts, ql, tl, d0, qc), go, ge
 
 
 NW_SCORE_KINDS = ("rand", "zero", "const")
