@@ -7,9 +7,10 @@ Phases, in order; the run stops with a non-zero exit at the first
 failure, and no phase is skipped:
 
 1. Environment: the card's name and power limit, torch and CUDA versions,
-   and the time to build the Smith-Waterman kernel (csrc/sw.cu) and the
-   banded one (csrc/banded.cu) from the sources of this checkout (one
-   nvcc per source, started together).
+   and the time to build the Smith-Waterman kernel (csrc/sw.cu), the
+   banded one (csrc/banded.cu) and the direction-bit one (csrc/dirbits.cu)
+   from the sources of this checkout (one nvcc per source, started
+   together).
 2. Kernel vs plain version on the card, bit-exact on (best, qend, tend):
    gapped with gap_window 64 and 0, and ungapped; bias off, on and at
    exactly +-bias_clip_bound; gaps 100/10 and 28/3; (B, L) in (512, 128),
@@ -33,6 +34,16 @@ failure, and no phase is skipped:
    x 2,048 at W 256, 32 x 2,048 x 1,024 at 512, 8 x 2,048 x 2,048 at
    2,048) in both engine modes; W = 8,192, the kernel's limit, and
    W = 8,193 refused.
+2c. The direction-bit kernel (csrc/dirbits.cu, ops/dirbits_cuda.py) in
+   both instances, the MSA's semi-global NW and the m8 traceback's local
+   SW, against their plain versions (ops/nw_device.py::nw_forward_bits,
+   ops/sw_bits.py::sw_forward_bits) on the card, bit-identical on whole
+   (B, L1, L2) bits arrays and on (end_i, end_j, score): DIRBITS_GAPS
+   (go < ge among them) x tests/test_torch_dirbits_kernel.py's shapes x
+   random and tie scores x int16 and int32 S; the callers' full batches
+   (NW 64 x 512², 16 x 2,048²; SW 64 x 64², 64 x 512², 32 x 1,024², 8 x
+   2,048²) and B = 1 on their own generators' every kind; rows past one
+   block's tile of 4,096 columns (3 x 50 x 4,097, 1 x 300 x 9,000).
 3. Times per shape and mode (CUDA events around a run of back-to-back
    launches, divided by their number, after a warm-up): kernel ms and
    GCUPS, the plain version's ms on the card, the bound, and the kernel's
@@ -55,9 +66,13 @@ failure, and no phase is skipped:
    end_j, score): buckets 64, 512 and 2,048, batches of 1 and 64 (16 at
    2,048), gaps 2816/256 (random scores) and 1100/100 (all-zero or
    constant scores: ties everywhere; not at 2,048 x 16), ragged lengths
-   down to 1.  Then its time per dispatch at the merge pipeline's
-   full batches (64 pairs at bucket 512, 16 at 2,048), and the device's
-   busy time inside one dispatch from a torch.profiler trace; the fused
+   down to 1.  Then at the merge pipeline's full batches (64 pairs at
+   bucket 512, 16 at 2,048), on int32 scores (the pipeline's) and int16
+   (nw_align_batch's): the kernel's ms (CUDA events), the plain version's
+   ms per dispatch on the card and on the CPU, the device's busy time
+   inside one plain dispatch from a torch.profiler trace, and the bound,
+   max(cells x DIRBITS_OPS_PER_CELL / peak scalar rate, (S, a byte of
+   bits a cell, lengths and end cells) / 3.35 TB/s); the fused
    merge's count products (64 x 512 x 512) and the guide gram (2,048 x
    8,192 bags), each equal to its CPU result, and their times.
 3c. The likelihood (phylo/likelihood.py, PyTorch ops) on the card against
@@ -83,10 +98,10 @@ failure, and no phase is skipped:
    and the full batches sw_traceback_batch packs (64, 64, 8), gaps 100/10
    and 30/5 (one of them, alternating, at 2,048 x 8), random windows with
    a planted diagonal, gap windows that force E/F states, and tie windows
-   (scores in {-1, 0, 1}), sizes ragged down to 1 x 1.  Then its time per
-   dispatch at the full batches of buckets 512 and 1,024, its CPU time,
-   and the device's busy time inside one dispatch from a torch.profiler
-   trace.
+   (scores in {-1, 0, 1}), sizes ragged down to 1 x 1.  Then at the full
+   batches of buckets 512 and 1,024 (int16 scores) 3b's times: the
+   kernel's, the plain version's on the card and the CPU, the plain
+   version's busy time, and the bound.
 4. The main path end to end at a real size: 20 synthetic proteomes x 120
    proteins (2,400 sequences, under the 5,000-sequence cascade
    threshold), gene families evolved along a random species tree with
@@ -97,8 +112,10 @@ failure, and no phase is skipped:
    E-value calibration runs on the kernel).  Prints the stage times, the
    pipeline and MSA counts, banded.seconds with its split (seed vote,
    packing, device) and the kernels' launches in that run; requires both
-   modes of both kernels launched, every banded batch through the banded
-   kernel, a cluster purity against the generating families
+   modes of both SW kernels launched, every banded batch through the
+   banded kernel, every NW forward of the tree stage (msa.dispatches)
+   through the direction-bit kernel, a cluster purity against the
+   generating families
    of at least PURITY_FLOOR, a filtered MSA for every core gene whose rows
    ungapped are the gene's input sequences, and a supermatrix with one row
    per species whose partitions tile its width.  Then `tree` again on the
@@ -120,7 +137,9 @@ failure, and no phase is skipped:
    files, every one before inference byte-identical; the inference
    outputs parsed: the same topology (RF 0), branch lengths within
    BLEN_ATOL + BLEN_RTOL len, supports within SUPPORT_POINTS, lnL within
-   BLEN_LL_RTOL, every other report line equal but `seconds`.
+   BLEN_LL_RTOL, every other report line equal but `seconds`; no kernel
+   launched by the CPU run, and every NW forward of the CUDA easy-core
+   through the direction-bit kernel.
 6. The paths of the cascade and gene-tree slice, at cut depths:
    6a. The cascade on 20 x CASCADE_PER_SPECIES proteomes of phase 4's
        generator and seed (1,200 sequences) through `createdb mock` into a
@@ -160,9 +179,10 @@ failure, and no phase is skipped:
        phase 4's 2,400-sequence proteome DB with search's default
        options, then `profile` on its m8 (in process: host code).  Requires every reference's
        self hit with fident 1.000, mismatch 0 and gapopen 0, the m8
-       grouped by reference, both kernel modes launched, search.chk "1"
-       and, where a reference is longer than 1,024, the banded traceback
-       taken.  Prints the candidate pairs, the hits, the traceback
+       grouped by reference, both kernel modes launched, every traceback
+       forward (traceback.dispatches) through the direction-bit kernel,
+       search.chk "1" and, where a reference is longer than 1,024, the
+       banded traceback taken.  Prints the candidate pairs, the hits, the traceback
        windows of each route, the seconds of the search and of
        traceback_fill, and the core genes profile finds.
    7b. `easy-search` with its defaults on phase 5's proteomes against a
@@ -217,7 +237,8 @@ failure, and no phase is skipped:
    9b. `sw_forward_banded_sharded` (32 pairs at bucket 1,024, W 256,
        gapped and ungapped; one banded kernel launch per shard) against
        one call of the plain version, and `nw_forward_bits_sharded` (64
-       pairs at bucket 512) against one call, bit-identical.
+       pairs at bucket 512; one direction-bit kernel launch per shard)
+       against one call of the plain version, bit-identical.
    9c. Under TF32 settings, `loglik_batch` and `site_loglik_batch` with
        mesh= on phase 3c's 64 candidates and `_loglik_multi_sharded` on 3
        genes at 3c's width x 8 candidates against one device, within rtol
@@ -277,8 +298,8 @@ failure, and no phase is skipped:
 Order of the run: phase 5's CPU run (6b's CPU run beside its easy-core;
 then three sides, each in one process: 7c and 6d; tree -T raxml-ng and
 tree -T fasttree; the two other aligners and 7b) starts first, on every
-core but two, and goes on beside phase 1, the checks of phases 2, 2b, 3b, 3c
-and 3d, then 6a and 6e (in a thread of their own) beside phase 5's CUDA
+core but two, and goes on beside phase 1, the checks of phases 2, 2b, 2c,
+3b, 3c and 3d, then 6a and 6e (in a thread of their own) beside phase 5's CUDA
 run (6b beside its easy-core; then two sides, each in one process:
 raxml-ng, 7c and 6d; the rest and 7b), all on those two.  Once it has
 ended, phase 3 and the times of phases 3b, 3c, 3d and 3e, phase 4, 7a and 7d
@@ -288,8 +309,9 @@ the script's clock is printed as a "[clock]" line.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel mode: launches in phase 4 and 7a, times and bound at (512, 512),
-the main path's most common bucket, and for the banded kernel 3e's at
-BANDED_TIMED; 6a
+the main path's most common bucket, for the banded kernel 3e's at
+BANDED_TIMED, for the direction-bit kernel 3b's NW at 64 x 512² (int32)
+and 3d's SW at 64 x 512² (int16); 6a
 prints the cascade's launches;
 phases 8 and 10 add no kernel: the ProstT5 model is PyTorch ops; a row
 for the sharded route: 9d's launches, 9a's times and bound);
@@ -379,6 +401,21 @@ CHECKABLE = ("foldseek", "foldmason", "mafft", "mafft-linsi", "iqtree", "fasttre
 SWB_CHECKS = [(64, 1), (64, 64), (512, 1), (512, 64), (2048, 1), (2048, 8)]
 SWB_GAPS = [(100, 10), (30, 5)]  # the engine's 10/1 in its integer units; another pair
 SWB_TIMED = [(512, 64), (1024, 32)]
+# phase 2c: the direction-bit kernel (csrc/dirbits.cu) against its plain
+# versions: tests/test_torch_dirbits_kernel.py's gaps (the last go < ge)
+# and shapes, the callers' full batches (B, bucket) with B = 1, and rows
+# past one block's tile of 4,096 columns
+DIRBITS_GAPS = [(2816, 256), (1100, 100), (100, 10), (10, 10), (5, 20)]
+DIRBITS_GRID = [(6, 24, 17), (1, 1, 1)]
+DIRBITS_FULL = {"nw": [(64, 512), (16, 2048), (1, 512)],
+                "sw_bits": [(64, 64), (64, 512), (32, 1024), (8, 2048), (1, 2048)]}
+DIRBITS_WIDE = [(3, 50, 4097), (1, 300, 9000)]  # (B, L1, L2)
+# integer operations a cell, counted from the recurrence: F 3 (two
+# subtractions, max), h0 2 (add, max), Escan 3 (add j*ge, prefix max,
+# subtract j*ge + go - ge), H 1, E 3 (as Escan), bits 8 (four comparisons,
+# H(j-1) - go, three or-shifts); SW 4 more (the clamp at 0, H == 0, its
+# or-shift, the best cell)
+DIRBITS_OPS_PER_CELL = {"nw": 20, "sw_bits": 24}
 SEARCH_OPTIONS = "-c 0.8"  # phase 7a/7b: search's default
 PARTITION_OPTIONS = "-m JTT+F+I+G -B 1000 -p {}"  # phase 7c: tree's defaults and a partition file
 PARTITION_ADAM_STEPS = 10  # phase 7d: the timed optimize_blens ...
@@ -591,7 +628,7 @@ def cli_chain(steps, out_dir, chain):
     seconds of each call go to {chain}.times.json and the chain's own
     (empty) counters to {chain}.counters.json."""
     from unicore_tpu_torch.cli import main
-    from unicore_tpu_torch.ops import banded_cuda, sw_cuda
+    from unicore_tpu_torch.ops import banded_cuda, dirbits_cuda, sw_cuda
     from unicore_tpu_torch.runtime import profiling
 
     times = {}
@@ -599,6 +636,7 @@ def cli_chain(steps, out_dir, chain):
         profiling.reset_counters()
         sw_cuda.reset_launch_counts()
         banded_cuda.reset_launch_counts()
+        dirbits_cuda.reset_launch_counts()
         os.environ["UNICORE_TPU_TORCH_COUNTERS"] = os.path.join(out_dir, f"{stage}.counters.json")
         t0 = time.perf_counter()
         rc = main([*argv, "-v", "2"])
@@ -801,7 +839,7 @@ def phase_env():
     import torch
 
     from unicore_tpu_torch.matrices import get_3di_matrix, get_aa_matrix
-    from unicore_tpu_torch.ops import banded_cuda, sw_cuda
+    from unicore_tpu_torch.ops import banded_cuda, dirbits_cuda, sw_cuda
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -815,11 +853,11 @@ def phase_env():
         f"peak scalar rate {peak_ops / 1e12:.2f} Tops/s")
     log(f"host: {host_cpu()}; torch CPU kernels {torch.backends.cpu.get_cpu_capability()}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        builds = [(mod, pool.submit(mod.build)) for mod in (sw_cuda, banded_cuda)]
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        builds = [(mod, pool.submit(mod.build)) for mod in (sw_cuda, banded_cuda, dirbits_cuda)]
         for mod, fut in builds:
             log(f"[phase 1] kernel built from {os.path.relpath(mod.SOURCE, ROOT)} in {fut.result():.1f} s")
-    log(f"[phase 1] both kernels built in {time.perf_counter() - t0:.1f} s")
+    log(f"[phase 1] the three kernels built in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
     saa_np = get_aa_matrix().astype(np.float32)
     s3d_np = get_3di_matrix().astype(np.float32)
@@ -960,6 +998,75 @@ def phase_banded_exact(ctx):
     log(f"[phase 2b] {n_cmp} banded kernel-vs-plain comparisons bit-exact on (best, qend, tend), W up to "
         f"{W} (W = {W + 1} refused), in {time.perf_counter() - t0:.1f} s")
     return max_err
+
+
+def phase_dirbits_exact(ctx):
+    """Phase 2c: both instances of the direction-bit kernel against their
+    plain versions on the card, bit-identical on whole (B, L1, L2) bits
+    arrays and on (end_i, end_j, score): DIRBITS_GAPS x DIRBITS_GRID x
+    every kind of synthetic.dirbits_scores x int16 and int32 S; the
+    callers' full batches (DIRBITS_FULL) on every kind of their own
+    generators (nw_scores, sw_windows), S and the gaps alternating; the
+    rows past one tile (DIRBITS_WIDE).  Returns the largest |score|
+    difference per instance (0 when exact)."""
+    import torch
+
+    from unicore_tpu_torch.ops import dirbits_cuda, nw_device, sw_bits
+    from unicore_tpu_torch.synthetic import (
+        DIRBITS_KINDS, NW_SCORE_KINDS, SW_WINDOW_KINDS, dirbits_scores, nw_scores, sw_windows,
+    )
+
+    fns = {"nw": (dirbits_cuda.nw_forward_bits_cuda, nw_device.nw_forward_bits),
+           "sw_bits": (dirbits_cuda.sw_forward_bits_cuda, sw_bits.sw_forward_bits)}
+    rng, dev = ctx["rng"], ctx["dev"]
+    max_err = {kind: 0 for kind in fns}
+    n_cmp = 0
+    t0 = time.perf_counter()
+
+    def held(kind, arrays, go, ge, what):
+        nonlocal n_cmp
+        kernel, plain = fns[kind]
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrays]
+        k, p = kernel(*t, go, ge), plain(*t, go, ge)
+        torch.cuda.synchronize()
+        max_err[kind] = max(max_err[kind], int((k[3] - p[3]).abs().max()))
+        for name, a, b in zip(("bits", "end_i", "end_j", "score"), k, p):
+            check(torch.equal(a, b), f"2c: {kind} kernel != plain in {name} at {what}, S {arrays[0].dtype}, "
+                                     f"go/ge {go}/{ge}: {int((a != b).sum())} differ")
+        n_cmp += 1
+
+    for kind in fns:
+        for go, ge in DIRBITS_GAPS:
+            for shape in DIRBITS_GRID:
+                for sk in DIRBITS_KINDS:
+                    for dtype in (np.int16, np.int32):
+                        held(kind, dirbits_scores(rng, *shape, sk, dtype), go, ge, f"{shape} {sk}")
+        kinds = NW_SCORE_KINDS if kind == "nw" else SW_WINDOW_KINDS
+        caller = DIRBITS_GAPS[0] if kind == "nw" else DIRBITS_GAPS[2]
+        for n, (B, Lb) in enumerate(DIRBITS_FULL[kind]):
+            for m, sk in enumerate(kinds):
+                S, l1, l2 = nw_scores(rng, B, Lb, Lb, sk) if kind == "nw" else sw_windows(rng, B, Lb, sk)
+                go, ge = (caller, DIRBITS_GAPS[3], DIRBITS_GAPS[4])[m]
+                held(kind, (S.astype(np.int32) if (n + m) % 2 else S, l1, l2), go, ge, f"({B}, {Lb}, {Lb}) {sk}")
+        for n, shape in enumerate(DIRBITS_WIDE):
+            for m, sk in enumerate(DIRBITS_KINDS):
+                dtype = (np.int16, np.int32)[(n + m) % 2]
+                held(kind, dirbits_scores(rng, *shape, sk, dtype), *caller, f"{shape} {sk}")
+    log(f"[phase 2c] {n_cmp} direction-bit kernel-vs-plain comparisons (NW and SW) bit-identical on whole bits "
+        f"arrays and (end_i, end_j, score), rows up to {max(s[2] for s in DIRBITS_WIDE)} columns, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return max_err
+
+
+def dirbits_bound(ctx, S, kind):
+    """(bound_ms, ops_ms, bytes_ms) of one direction-bit launch on S (B,
+    L1, L2): every cell at DIRBITS_OPS_PER_CELL over the peak scalar rate;
+    S, the lengths and the outputs (a byte of bits a cell, three int32 a
+    pair) read or written once over HBM_BYTES_PER_S."""
+    cells = float(S.numel())
+    ops_ms = cells * DIRBITS_OPS_PER_CELL[kind] / ctx["peak_ops"] * 1e3
+    bytes_ms = (cells * S.element_size() + cells + 5 * 4 * S.shape[0]) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms
 
 
 def banded_bound(ctx, t, W, kind):
@@ -1103,31 +1210,60 @@ def phase_nw(ctx):
     return dict(count_args=dargs, feats=feats)
 
 
+def dirbits_times(ctx, kind, d, plain, kernel, gaps, reps=20, cpu=True):
+    """Times of one direction-bit dispatch on the card's inputs `d`:
+    the kernel (CUDA events over `reps` launches after a warm-up), the
+    plain version (over 3), the plain version's device-busy time inside
+    one profiled dispatch, with `cpu` the CPU's plain time, and the
+    kernel's bound."""
+    k_ms = time_cuda(lambda: kernel(*d, *gaps), reps)
+    ms = time_cuda(lambda: plain(*d, *gaps), 3)
+    busy_ms, wall_ms = device_busy_ms(lambda: plain(*d, *gaps))
+    cpu_ms = None
+    if cpu:
+        t = [x.cpu() for x in d]
+        c0 = time.perf_counter()
+        plain(*t, *gaps)
+        cpu_ms = (time.perf_counter() - c0) * 1e3
+    bound_ms, ops_ms, bytes_ms = dirbits_bound(ctx, d[0], kind)
+    return dict(kernel_ms=k_ms, ms=ms, cpu_ms=cpu_ms, busy_ms=busy_ms, profiled_wall_ms=wall_ms,
+                bound_ms=bound_ms, ops_ms=ops_ms, bytes_ms=bytes_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def log_dirbits_times(what, timing):
+    log(f"[{what}] bucket batch S | kernel ms | plain ms per dispatch | CPU ms | plain's device busy ms in one "
+        f"profiled dispatch (its wall ms) | bound ms (ops, bytes) | kernel's share of bound")
+    for (Lb, B, dtype), x in timing.items():
+        busy = "not measured" if x["busy_ms"] is None else f"{x['busy_ms']:.2f}"
+        cpu = "not timed" if x["cpu_ms"] is None else f"{x['cpu_ms']:9.2f}"
+        log(f"  {Lb:6d} {B:5d} {dtype:5s} | {x['kernel_ms']:9.4f} | {x['ms']:10.2f} | {cpu} | "
+            f"{busy} ({x['profiled_wall_ms']:.2f}) | {x['bound_ms']:.4f} ({x['ops_ms']:.4f}, "
+            f"{x['bytes_ms']:.4f}) | {100 * x['bound_ms'] / x['kernel_ms']:.2f} %")
+
+
 def phase_nw_times(ctx, inputs):
     """Phase 3b, times: the NW forward per dispatch at the merge pipeline's
-    full batches, its CPU time and the device's busy time inside one
-    dispatch; the count products and the guide gram.  Returns
-    {(bucket, batch): numbers, "counts": ms, "gram": ms}."""
+    full batches, on int32 scores as the pipeline makes them and on int16
+    as nw_align_batch packs them: the kernel, the plain version on the
+    card and on the CPU, the plain version's device-busy time inside one
+    dispatch and the bound; the count products and the guide gram.
+    Returns {(bucket, batch, dtype): numbers, "counts": ms, "gram": ms}."""
     import torch
 
     from unicore_tpu_torch.msa.guide_tree import _shared_counts
+    from unicore_tpu_torch.ops.dirbits_cuda import nw_forward_bits_cuda
     from unicore_tpu_torch.ops.nw_device import _count_scores, nw_forward_bits
     from unicore_tpu_torch.synthetic import nw_scores
 
-    log("[phase 3b] bucket batch | ms per dispatch | CPU ms | device busy ms in one profiled dispatch (its wall ms)")
     timing = {}
     for Lb, B in NW_TIMED:
         S, l1, l2 = nw_scores(ctx["rng"], B, Lb, Lb, "rand")
-        t = [torch.from_numpy(x) for x in (S, l1, l2)]
-        d = [x.to(ctx["dev"]) for x in t]
-        ms = time_cuda(lambda: nw_forward_bits(*d, *NW_GAPS[0]), 3)
-        c0 = time.perf_counter()
-        nw_forward_bits(*t, *NW_GAPS[0])
-        cpu_ms = (time.perf_counter() - c0) * 1e3
-        busy_ms, wall_ms = device_busy_ms(lambda: nw_forward_bits(*d, *NW_GAPS[0]))
-        timing[(Lb, B)] = dict(ms=ms, cpu_ms=cpu_ms, busy_ms=busy_ms, profiled_wall_ms=wall_ms)
-        busy = "not measured" if busy_ms is None else f"{busy_ms:.2f}"
-        log(f"  {Lb:6d} {B:5d} | {ms:10.2f} | {cpu_ms:9.2f} | {busy} ({wall_ms:.2f})")
+        for dtype in ("int32", "int16"):
+            d = [torch.from_numpy(x).to(ctx["dev"]) for x in (S.astype(dtype), l1, l2)]
+            timing[(Lb, B, dtype)] = dirbits_times(ctx, "nw", d, nw_forward_bits, nw_forward_bits_cuda, NW_GAPS[0],
+                                                   cpu=dtype == "int32")
+    log_dirbits_times("phase 3b", timing)
     B, Lb = NW_TIMED[0][1], NW_TIMED[0][0]
     timing["counts"] = time_cuda(lambda: _count_scores(*inputs["count_args"]), 5)
     timing["gram"] = time_cuda(lambda: _shared_counts(inputs["feats"], ctx["dev"]), 3)
@@ -1344,37 +1480,34 @@ def phase_sw_bits(ctx):
 
 
 def phase_sw_bits_times(ctx, inputs):
-    """Phase 3d, times: one sw_forward_bits dispatch at the full batches of
-    buckets 512 and 1,024, its CPU time and the device's busy time inside
-    one dispatch.  Returns {(bucket, batch): numbers}."""
+    """Phase 3d, times: one dispatch of the traceback DP at the full
+    batches of buckets 512 and 1,024 (int16 scores, as sw_traceback_batch
+    packs them): the kernel, the plain version on the card and on the CPU,
+    the plain version's device-busy time inside one dispatch and the
+    bound.  Returns {(bucket, batch, dtype): numbers}."""
+    from unicore_tpu_torch.ops.dirbits_cuda import sw_forward_bits_cuda
     from unicore_tpu_torch.ops.sw_bits import sw_forward_bits
 
-    log("[phase 3d] bucket batch | ms per dispatch | CPU ms | device busy ms in one profiled dispatch (its wall ms)")
-    timing = {}
-    for (Lb, B), d in inputs.items():
-        ms = time_cuda(lambda: sw_forward_bits(*d, *SWB_GAPS[0]), 3)
-        c0 = time.perf_counter()
-        sw_forward_bits(*(x.cpu() for x in d), *SWB_GAPS[0])
-        cpu_ms = (time.perf_counter() - c0) * 1e3
-        busy_ms, wall_ms = device_busy_ms(lambda: sw_forward_bits(*d, *SWB_GAPS[0]))
-        timing[(Lb, B)] = dict(ms=ms, cpu_ms=cpu_ms, busy_ms=busy_ms, profiled_wall_ms=wall_ms)
-        busy = "not measured" if busy_ms is None else f"{busy_ms:.2f}"
-        log(f"  {Lb:6d} {B:5d} | {ms:10.2f} | {cpu_ms:9.2f} | {busy} ({wall_ms:.2f})")
+    timing = {(Lb, B, "int16"): dirbits_times(ctx, "sw_bits", d, sw_forward_bits, sw_forward_bits_cuda, SWB_GAPS[0])
+              for (Lb, B), d in inputs.items()}
+    log_dirbits_times("phase 3d", timing)
     return timing
 
 
 def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
     """Phase 4: createdb -> cluster -> profile -> tree -n at a real size;
     returns the kernels' launches per mode in that run ("gapped",
-    "ungapped" and the banded kernel's "banded.gapped", "banded.ungapped")
-    and the counters of its inference."""
+    "ungapped", the banded kernel's "banded.gapped", "banded.ungapped"
+    and the direction-bit kernel's "nw", "sw_bits") and the counters of
+    its inference."""
     from unicore_tpu_torch import synthetic
-    from unicore_tpu_torch.ops import banded_cuda, sw_cuda
+    from unicore_tpu_torch.ops import banded_cuda, dirbits_cuda, sw_cuda
 
     # the main path runs in the CLI subprocesses below, whose counts start
     # at 0 and are read back from their counters files
     sw_cuda.reset_launch_counts()
     banded_cuda.reset_launch_counts()
+    dirbits_cuda.reset_launch_counts()
     in_dir = os.path.join(work, "proteomes")
     labels = synthetic.write_proteomes(in_dir, n_species, per_species, seed=7)
     lengths = []
@@ -1387,6 +1520,7 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
     times, counters = run_slice(in_dir, out_dir, os.path.join(work, "home_main"))
     c, t = counters["cluster"], counters["tree"]
     launches = kernel_launches(c)
+    nw = dirbits_launches(counters)
     purity, n_clusters = synthetic.cluster_purity(out_dir, labels)
     genes, width, n_parts = check_tree(out_dir, n_species)
     for stage in ("createdb", "cluster", "profile", "tree"):
@@ -1403,7 +1537,7 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
         f"stage.cluster.seconds {c['stage.cluster.seconds']:.2f}")
     log(f"  tree: genes aligned {len(genes)}, msa.cells {t['msa.cells']:.4g}, "
         f"msa.seconds {t['msa.seconds']:.2f}, msa.nw.seconds {t['msa.nw.seconds']:.2f}, "
-        f"msa.dispatches {int(t['msa.dispatches'])}, host-route merges "
+        f"msa.dispatches {int(t['msa.dispatches'])} (direction-bit kernel launches {nw['nw']}), host-route merges "
         f"{int(t.get('msa.host_route_merges', 0))}, stage.tree.seconds {t['stage.tree.seconds']:.2f}; "
         f"supermatrix {n_species} x {width}, {n_parts} partitions")
     log(f"  kernel launches {launches}; cluster purity {purity:.4f} over {n_clusters} clusters "
@@ -1412,6 +1546,9 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
     check_banded_route(c, launches, "phase 4")
     check(purity >= PURITY_FLOOR, f"cluster purity {purity:.4f} < {PURITY_FLOOR}")
     check(t["msa.dispatches"] > 0, "the tree stage ran no NW forward")
+    check(nw["nw"] == int(t["msa.dispatches"]),
+          f"phase 4: {int(t['msa.dispatches'])} NW forward dispatches, {nw['nw']} direction-bit kernel launches")
+    launches.update(nw)
     return launches, phase_inference(work, out_dir, n_species)
 
 
@@ -1420,6 +1557,13 @@ def kernel_launches(counters):
     out = {k: int(counters.get(f"kernel.sw.{k}.launches", 0)) for k in ("gapped", "ungapped")}
     out.update({f"banded.{k}": int(counters.get(f"kernel.banded.{k}.launches", 0)) for k in ("gapped", "ungapped")})
     return out
+
+
+def dirbits_launches(counters):
+    """{"nw", "sw_bits"}: the direction-bit kernel's launches summed over
+    CLI runs' counters {stage: counters}."""
+    return {k: sum(int(c.get(f"kernel.dirbits.{k}.launches", 0)) for c in counters.values())
+            for k in ("nw", "sw_bits")}
 
 
 def check_banded_route(counters, launches, what):
@@ -1499,6 +1643,10 @@ def phase_search(ctx, work):
     check(not bad, f"7a: references without a self hit of fident 1.000, mismatch 0, gapopen 0: {bad[:5]}")
     launches = kernel_launches(c)
     check(launches["gapped"] > 0 and launches["ungapped"] > 0, f"7a did not launch both kernel modes: {launches}")
+    launches.update(dirbits_launches(counters))
+    check(launches["sw_bits"] == int(c["traceback.dispatches"]) > 0,
+          f"7a: {int(c['traceback.dispatches'])} traceback forward dispatches, {launches['sw_bits']} "
+          f"direction-bit kernel launches")
     check_banded_route(c, launches, "7a")
     check(open(os.path.join(s_dir, "search", "search.chk")).read() == "1", "7a: search.chk does not read 1")
     n_long = sum(L > 1024 for L in lengths)
@@ -1507,8 +1655,9 @@ def phase_search(ctx, work):
     log(f"[phase 7a] search (-s \"{SEARCH_OPTIONS}\") of {len(genes4)} references ({n_long} longer than 1,024) "
         f"against phase 4's proteome DB on CUDA: "
         f"{times['search']:.2f} s of subprocess wall (stage.search.seconds {c['stage.search.seconds']:.2f}, "
-        f"traceback_fill {c['traceback.fill_seconds']:.2f} s of it, sw_forward_bits dispatches "
-        f"{int(c['traceback.dispatches'])}); candidate pairs {int(c['search.candidate_pairs'])}, hits "
+        f"traceback_fill {c['traceback.fill_seconds']:.2f} s of it, traceback.seconds "
+        f"{c['traceback.seconds']:.2f}, traceback forward dispatches {int(c['traceback.dispatches'])}, every one "
+        f"a direction-bit kernel launch); candidate pairs {int(c['search.candidate_pairs'])}, hits "
         f"{int(c['search.hits'])}; traceback windows batched {int(c['traceback.batched'])}, banded "
         f"{int(c.get('traceback.banded', 0))}, full Gotoh {int(c.get('traceback.full', 0))}; kernel launches "
         f"{launches}; every self hit at fident 1.000 ({ctx['smi']})")
@@ -1604,7 +1753,7 @@ def cascade_step(db_path, tsv, threshold):
     from unicore_tpu_torch.align.engine import AlignParams
     from unicore_tpu_torch.io.seqdb import SeqDB
     from unicore_tpu_torch.modules.cluster import cluster_db
-    from unicore_tpu_torch.ops import banded_cuda, sw_cuda
+    from unicore_tpu_torch.ops import banded_cuda, dirbits_cuda, sw_cuda
     from unicore_tpu_torch.runtime import logging as msg
     from unicore_tpu_torch.runtime import profiling
 
@@ -1613,6 +1762,7 @@ def cascade_step(db_path, tsv, threshold):
     profiling.reset_counters()
     sw_cuda.reset_launch_counts()
     banded_cuda.reset_launch_counts()
+    dirbits_cuda.reset_launch_counts()
     t0 = time.perf_counter()
     clusters, _ = cluster_db(db, AlignParams.from_options("-c 0.8"), cascade_threshold=threshold)
     seconds = time.perf_counter() - t0
@@ -1620,7 +1770,8 @@ def cascade_step(db_path, tsv, threshold):
     write_cluster_tsv(tsv, clusters, db.names)
     counters = dict(profiling.get_counters(), **{f"kernel.sw.{k}.launches": v
                                                  for k, v in sw_cuda.LAUNCHES.items()},
-                    **{f"kernel.banded.{k}.launches": v for k, v in banded_cuda.LAUNCHES.items()})
+                    **{f"kernel.banded.{k}.launches": v for k, v in banded_cuda.LAUNCHES.items()},
+                    **{f"kernel.dirbits.{k}.launches": v for k, v in dirbits_cuda.LAUNCHES.items()})
     if os.environ.get("UNICORE_TPU_TORCH_COUNTERS"):
         profiling.dump(os.environ["UNICORE_TPU_TORCH_COUNTERS"], counters)
     return db, counters, seconds
@@ -2356,7 +2507,7 @@ def phase_sharded_banded_nw(ctx, mesh):
     bit-identical to one call of its single-device function on the card."""
     import torch
 
-    from unicore_tpu_torch.ops import banded, banded_cuda, nw_device
+    from unicore_tpu_torch.ops import banded, banded_cuda, dirbits_cuda, nw_device
     from unicore_tpu_torch.synthetic import nw_scores
 
     t0 = time.perf_counter()
@@ -2374,12 +2525,16 @@ def phase_sharded_banded_nw(ctx, mesh):
         check(float(one[0].max()) > 0, "9b: the banded pairs scored nothing")
     Bn, Ln = NW_9B
     S, l1, l2 = (torch.from_numpy(x).to(dev) for x in nw_scores(ctx["rng"], Bn, Ln, Ln, "rand"))
+    before = dirbits_cuda.LAUNCHES["nw"]
     sh = nw_device.nw_forward_bits_sharded(S, l1, l2, 2816, 256, mesh)
-    one = nw_device.nw_forward_bits(S, l1, l2, 2816, 256)
+    check(dirbits_cuda.LAUNCHES["nw"] - before == LOGICAL_SHARDS,
+          f"9b: nw_forward_bits_sharded made {dirbits_cuda.LAUNCHES['nw'] - before} kernel launches")
+    one = nw_device.nw_forward_bits(S, l1, l2, 2816, 256)  # plain, one call
     check(all(torch.equal(a, b) for a, b in zip(sh, one)), "nw_forward_bits_sharded != one call")
     torch.cuda.synchronize()
     log(f"[phase 9b] sw_forward_banded_sharded ({B} pairs, bucket {L}, W {W}; gapped and ungapped; one banded "
-        f"kernel launch per shard) against one plain call, and nw_forward_bits_sharded ({Bn} pairs, bucket {Ln}) on {LOGICAL_SHARDS} shards bit-identical to one "
+        f"kernel launch per shard) against one plain call, and nw_forward_bits_sharded ({Bn} pairs, bucket {Ln}; one "
+        f"direction-bit kernel launch per shard) on {LOGICAL_SHARDS} shards bit-identical to one plain "
         f"call each in {time.perf_counter() - t0:.1f} s")
 
 
@@ -3116,10 +3271,15 @@ def phase_crosscheck(ctx, work, small, cpu_run, t0):
     check(a["tree/tree.chk"] == b"1", "easy-core's tree.chk does not read 1")
     check(any(n.startswith("profile/") and n.endswith(".txt") for n in a), "cross-check found no core genes")
     check(sum(int(cpu_counters["easy-core"].get(f"kernel.{n}.{k}.launches", 0))
-              for n in ("sw", "banded") for k in ("gapped", "ungapped")) == 0, "the CPU run launched a kernel")
+              for n in ("sw", "banded") for k in ("gapped", "ungapped")) == 0
+          and sum(dirbits_launches(cpu_counters).values()) == 0, "the CPU run launched a kernel")
     banded = kernel_launches(cuda_counters["easy-core"])
     check(banded["banded.gapped"] > 0 and banded["banded.ungapped"] > 0,
           f"phase 5's long family did not go through the banded kernel on CUDA: {banded}")
+    nw = dirbits_launches({"easy-core": cuda_counters["easy-core"]})["nw"]
+    check(nw == int(cuda_counters["easy-core"]["msa.dispatches"]) > 0,
+          f"phase 5: {int(cuda_counters['easy-core']['msa.dispatches'])} NW forward dispatches on CUDA, {nw} "
+          f"direction-bit kernel launches")
     log(f"[phase 5] CUDA and CPU runs of easy-core, tree -n (mafft, mafft-linsi) and tree -T fasttree|raxml-ng "
         f"at {CROSS_SPECIES} x {CROSS_PER_SPECIES}: {len(a)} files, {len(a) - n_inf} byte-identical, "
         f"{n_inf} inference outputs within tolerance; {time.perf_counter() - t0:.1f} s since the CPU run "
@@ -3133,7 +3293,7 @@ def phase_crosscheck(ctx, work, small, cpu_run, t0):
 
 
 def checks_beside_cpu_run(work):
-    """Phase 1, the checks of phases 2, 2b, 3b, 3c and 3d, then 6a and 6e (in
+    """Phase 1, the checks of phases 2, 2b, 2c, 3b, 3c and 3d, then 6a and 6e (in
     a thread of their own) beside phase 5's CUDA run (with 6b, 6d, 7b and
     7c), on two cores, while phase 5's CPU run (a cross-check, timed
     by nothing) goes on on the others from the start.  Returns the
@@ -3153,6 +3313,8 @@ def checks_beside_cpu_run(work):
                 max_err = phase_exact(ctx)
             with span("phase 2b"):
                 max_err.update({f"banded.{k}": v for k, v in phase_banded_exact(ctx).items()})
+            with span("phase 2c"):
+                max_err.update(phase_dirbits_exact(ctx))
             with span("phase 3b, checks"):
                 inputs = dict(nw=phase_nw(ctx))
             with span("phase 3c, checks"):
@@ -3192,11 +3354,11 @@ def main() -> int:
         with span("phase 3, times"):
             timing = phase_times(ctx)
         with span("phase 3b, times"):
-            phase_nw_times(ctx, inputs["nw"])
+            nw_timing = phase_nw_times(ctx, inputs["nw"])
         with span("phase 3c, times"):
             phase_phylo_times(ctx, inputs["phylo"])
         with span("phase 3d, times"):
-            phase_sw_bits_times(ctx, inputs["sw_bits"])
+            swb_timing = phase_sw_bits_times(ctx, inputs["sw_bits"])
         with span("phase 3e, times"):
             banded_timing = phase_banded_times(ctx)
         with span("phase 4"):
@@ -3239,6 +3401,17 @@ def main() -> int:
             "launches": launches[f"banded.{kind}"] + search_launches[f"banded.{kind}"],
             "max_abs_err": max_err[f"banded.{kind}"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+        })
+    for kind, name, replaces, t in (
+            ("nw", "nw_forward_bits", "unicore_tpu/ops/nw_device.py:40", nw_timing[(*NW_TIMED[0], "int32")]),
+            ("sw_bits", "sw_forward_bits", "unicore_tpu/ops/sw_bits.py:40", swb_timing[(*SWB_TIMED[0], "int16")])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "unicore_tpu_torch/csrc/dirbits.cu",
+            "replaces": replaces,
+            "launches": launches[kind] + search_launches[kind], "max_abs_err": max_err[kind],
+            "ms": t["kernel_ms"], "plain_ms": t["ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
     kernels.append({

@@ -335,11 +335,13 @@ def run(args: SimpleNamespace) -> None:
 def _dump_counters() -> None:
     path = os.environ.get("UNICORE_TPU_TORCH_COUNTERS")
     if path:
-        from unicore_tpu_torch.ops import banded_cuda, sw_cuda
+        from unicore_tpu_torch.ops import banded_cuda, dirbits_cuda, sw_cuda
         from unicore_tpu_torch.runtime import profiling
         profiling.dump(path, {**{f"kernel.sw.{k}.launches": v for k, v in sw_cuda.LAUNCHES.items()},
                               **{f"kernel.banded.{k}.launches": v
-                                 for k, v in banded_cuda.LAUNCHES.items()}})
+                                 for k, v in banded_cuda.LAUNCHES.items()},
+                              **{f"kernel.dirbits.{k}.launches": v
+                                 for k, v in dirbits_cuda.LAUNCHES.items()}})
 
 
 def main(argv=None) -> int:

@@ -2,10 +2,13 @@
 
 Counterpart of unicore_tpu/ops/nw_device.py, in PyTorch on the device of
 its input tensors (the JAX functions are XLA code, not Pallas kernels).
-Merges from MANY genes are batched into one (B, L, L) integer DP that
-runs as a Python loop over rows of int32 tensor ops, emitting compact
-direction bits; the host decodes tracebacks from the bits with a tiny
-O(path) walk.
+Merges from MANY genes are batched into one (B, L, L) integer DP emitting
+compact direction bits; the host decodes tracebacks from the bits with a
+tiny O(path) walk.  The callers run the DP through
+ops/dirbits_cuda.py::nw_forward_bits_cuda: on a card the hand-written
+kernel of csrc/dirbits.cu, on the CPU `nw_forward_bits` below, the plain
+version (a Python loop over rows of int32 tensor ops), which is also the
+kernel's reference on the card.
 
 Exactness contract: scores are pre-quantized integers (ops/nw.py QUANT),
 the DP is int32, and prefix maxima are `torch.cummax` (max is exact in
@@ -21,12 +24,12 @@ Direction bits per cell (i, j), 1-based DP coordinates:
     bit2  E[i,j] == H[i,j-1]-go   (gap-open while in E)
     bit3  F[i,j] == H[i-1,j]-go   (gap-open while in F)
 
-Counters (runtime/profiling.py): `msa.dispatches` counts the calls of
-`nw_forward_bits`; `msa.nw.seconds` is the host wall time inside them
-plus the wait for their results at collection (the bits' copy to the
-host included).  `nw_forward_bits_sharded` runs a batch data-parallel
-over a device mesh (parallel/mesh.py), one block of pairs per device,
-each shard a call of `nw_forward_bits`.
+Counters (runtime/profiling.py): `msa.dispatches` counts the NW forward
+calls (kernel or plain version); `msa.nw.seconds` is the host wall time
+inside them plus the wait for their results at collection (the bits'
+copy to the host included).  `nw_forward_bits_sharded` runs a batch
+data-parallel over a device mesh (parallel/mesh.py), one block of pairs
+per device, each shard a call of `nw_forward_bits_cuda`.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from unicore_tpu_torch.ops import dirbits_cuda
 from unicore_tpu_torch.parallel import mesh as mesh_mod
 from unicore_tpu_torch.runtime import device as device_mod
 from unicore_tpu_torch.runtime import profiling
@@ -133,14 +137,16 @@ def nw_forward_bits_sharded(Sp, l1, l2, go: int, ge: int, mesh):
     """`nw_forward_bits` data-parallel over the devices of `mesh`'s first
     axis (unicore_tpu.ops.nw_device.nw_forward_bits_sharded): the merge
     batch is split into one block of pairs per device, and each block
-    goes through the same forward on its device, so the results are
+    goes through `nw_forward_bits_cuda` on its device (the kernel on a
+    card, the plain version on the CPU), so the results are
     bit-identical to one call on the whole batch.  B must be a multiple
     of the number of shards (nw_align_batch pads).  (bits, end_i, end_j,
     score) come back in input order on the first shard's device."""
     devices = mesh_mod.shard_devices(mesh)
     S_k = mesh_mod.shard(Sp, devices)
     l1_k, l2_k = (mesh_mod.shard(x, devices, torch.int32) for x in (l1, l2))
-    outs = [nw_forward_bits(S_k[k], l1_k[k], l2_k[k], go, ge) for k in range(len(devices))]
+    outs = [dirbits_cuda.nw_forward_bits_cuda(S_k[k], l1_k[k], l2_k[k], go, ge)
+            for k in range(len(devices))]
     return tuple(mesh_mod.gather([o[i] for o in outs], devices[0]) for i in range(4))
 
 
@@ -258,7 +264,7 @@ def _nw_counts_impl(
     on the tensors' device.  Returns the forward's (bits, end_i, end_j,
     score); the traceback is `_nw_decode_device` at collection."""
     Sq = _count_scores(c1a, c2a, c1s, c2s, n1, n2, l1, l2, saa, s3d, wA, wS)
-    return nw_forward_bits(Sq, l1, l2, go, ge)
+    return dirbits_cuda.nw_forward_bits_cuda(Sq, l1, l2, go, ge)
 
 
 def nw_counts_exact_bound(saa: np.ndarray, s3d: np.ndarray,
@@ -459,7 +465,7 @@ def nw_align_batch(
                     mesh_mod.pad_rows(l2, Bd, 1), int(go), int(ge), mesh,
                 )
             else:
-                res = nw_forward_bits(
+                res = dirbits_cuda.nw_forward_bits_cuda(
                     torch.from_numpy(Sp).to(dev), torch.from_numpy(l1).to(dev),
                     torch.from_numpy(l2).to(dev), int(go), int(ge),
                 )

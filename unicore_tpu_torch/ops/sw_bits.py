@@ -5,9 +5,13 @@ its input tensors (the JAX function is XLA code, not a Pallas kernel).
 The m8 columns (fident/alnlen/mismatch/gapopen, search.rs:56-61
 convertalis contract) need the alignment path of every gated hit.  The
 forward DP of many hit windows runs as one (B, L, L) integer DP on the
-device, a Python loop over rows of int32 tensor ops, emitting compact
-per-cell direction bits; the host walks each path in O(path) from the
-bits (the same device-forward/host-decode split as ops/nw_device.py).
+device, emitting compact per-cell direction bits; the host walks each
+path in O(path) from the bits (the same device-forward/host-decode split
+as ops/nw_device.py).  `sw_traceback_batch` runs the DP through
+ops/dirbits_cuda.py::sw_forward_bits_cuda: on a card the hand-written
+kernel of csrc/dirbits.cu, on the CPU `sw_forward_bits` below, the plain
+version (a Python loop over rows of int32 tensor ops), which is also the
+kernel's reference on the card.
 
 Exactness: scores are integers (combined substitution units plus the
 integer composition-bias corrections), the DP is int32, prefix maxima are
@@ -24,10 +28,10 @@ sw_traceback_ref):
 so the bits, end cells and scores are bit-identical to the JAX function's
 and the decoded paths to sw_traceback_ref's, on every device.
 
-Counters (runtime/profiling.py): `traceback.dispatches` counts the calls
-of `sw_forward_bits`; `traceback.seconds` is the host wall time inside
-them plus `sw_traceback_batch`'s collection (the wait for the results,
-their copy to the host and the path walks).
+Counters (runtime/profiling.py): `traceback.dispatches` counts the SW
+forward calls (kernel or plain version); `traceback.seconds` is the host
+wall time inside them plus `sw_traceback_batch`'s collection (the wait
+for the results, their copy to the host and the path walks).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from unicore_tpu_torch.ops import dirbits_cuda
 from unicore_tpu_torch.runtime import device as device_mod
 from unicore_tpu_torch.runtime import profiling
 
@@ -210,7 +215,7 @@ def sw_traceback_batch(
                     int(Sk.min(initial=0)) > PAD_SCORE, "score exceeds int16"
                 Sp[row, :a, :b] = Sk
                 l1[row], l2[row] = a, b
-            res = sw_forward_bits(
+            res = dirbits_cuda.sw_forward_bits_cuda(
                 torch.from_numpy(Sp).to(dev), torch.from_numpy(l1).to(dev),
                 torch.from_numpy(l2).to(dev), int(go), int(ge),
             )

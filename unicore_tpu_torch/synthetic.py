@@ -346,6 +346,36 @@ def sw_windows(rng, B, L, kind="rand"):
     return S, l1, l2
 
 
+DIRBITS_KINDS = ("rand", "ties")
+
+
+def dirbits_scores(rng, B, L1, L2, kind="rand", dtype=np.int16):
+    """(S (B, L1, L2) `dtype`, l1 (B,) int32, l2 (B,) int32) for the
+    direction-bit DP (ops/dirbits_cuda.py: NW and SW) at any shape.
+
+    rand   scores -40..29 with a planted diagonal of +50
+    ties   scores in {-1, 0, 1}: equal cells and equal paths everywhere
+
+    Lengths are ragged down to 1 x 1 (the first pair), the second pair is
+    full and the last has one column; cells past them hold PAD_SCORE."""
+    if kind == "ties":
+        S = rng.randint(-1, 2, (B, L1, L2))
+    else:
+        S = rng.randint(-40, 30, (B, L1, L2))
+        w = min(L1, L2)
+        S[:, np.arange(w), np.arange(w)] += 50
+    l1 = rng.randint(1, L1 + 1, B).astype(np.int32)
+    l2 = rng.randint(1, L2 + 1, B).astype(np.int32)
+    l1[0], l2[0] = 1, 1
+    if B > 1:
+        l1[1], l2[1] = L1, L2
+        l2[-1] = 1
+    for b in range(B):
+        S[b, l1[b]:, :] = PAD_SCORE
+        S[b, :, l2[b]:] = PAD_SCORE
+    return S.astype(dtype), l1, l2
+
+
 PROSTT5_VOCAB_ROWS = 150  # the published ProstT5 vocab_size
 
 
