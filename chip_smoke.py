@@ -32,8 +32,11 @@ failure, and no phase is skipped:
    gap windows 1, 3, 16, 100 and 1,024 (every E-window mode) at W 256,
    2,048 and 4,096; the engine's full batches (BANDED_ENGINE: 64 x 2,048
    x 2,048 at W 256, 32 x 2,048 x 1,024 at 512, 8 x 2,048 x 2,048 at
-   2,048) in both engine modes; W = 8,192, the kernel's limit, and
-   W = 8,193 refused.
+   2,048) in both engine modes; the edges of the kernel's table of
+   columns a lane (BANDED_CLASS_EDGES: each band-width class's upper W
+   and one past it) and a batch of 520 pairs, above the plain route's
+   128 MB cap and the engine's batch_size (BANDED_OVER_CAP), in both
+   engine modes; W = 8,192, the kernel's limit, and W = 8,193 refused.
 2c. The direction-bit kernel (csrc/dirbits.cu, ops/dirbits_cuda.py) in
    both instances, the MSA's semi-global NW and the m8 traceback's local
    SW, against their plain versions (ops/nw_device.py::nw_forward_bits,
@@ -59,8 +62,13 @@ failure, and no phase is skipped:
 3e. The banded kernel per engine mode (gap_window 64 and ungapped, bias
    on) at the engine's full batches (BANDED_ENGINE; the JSON line takes
    BANDED_TIMED, the full batch at bucket 2,048 with the default band:
-   64 pairs, Lq = Lt = 2,048, W 256): kernel ms, the plain version's ms on the card, and the bound
-   by phase 3's rule on the band cells sum(qlen * W).
+   64 pairs, Lq = Lt = 2,048, W 256): kernel ms and us per row, the plain
+   version's ms on the card, and the bound by phase 3's rule on the band
+   cells sum(qlen * W).  Then the sweep of the kernel's columns a lane:
+   every candidate C of each band-width class (BANDED_SWEEP,
+   BANDED_SWEEP_COLUMNS: at least 4 warps a pair), bit-equal to the
+   table's launch and timed at the class's batches, beside the table's
+   choice.
 3b. The MSA's NW forward (ops/nw_device.py, PyTorch ops) on the card
    against the same function on the CPU, bit-identical on (bits, end_i,
    end_j, score): buckets 64, 512 and 2,048, batches of 1 and 64 (16 at
@@ -111,7 +119,8 @@ failure, and no phase is skipped:
    `python -m unicore_tpu_torch` subprocesses with a fresh HOME (so the
    E-value calibration runs on the kernel).  Prints the stage times, the
    pipeline and MSA counts, banded.seconds with its split (seed vote,
-   packing, device) and the kernels' launches in that run; requires both
+   packing, device), the banded batches (banded.launches), pairs and
+   buckets, and the kernels' launches in that run; requires both
    modes of both SW kernels launched, every banded batch through the
    banded kernel, every NW forward of the tree stage (msa.dispatches)
    through the direction-bit kernel, a cluster purity against the
@@ -352,7 +361,25 @@ BANDED_GRID = [(64, 256, 256, 128), (32, 512, 600, 256), (16, 700, 500, 512), (8
                (4, 200, 3000, 2048), (8, 150, 120, 33), (8, 100, 90, 300)]
 BANDED_ENGINE = [(64, 2048, 2048, 256), (32, 2048, 1024, 512), (8, 2048, 2048, 2048)]  # the engine's full batches
 BANDED_WINDOWS = [1, 3, 16, 100, 1024]  # 2b: E windows inside a lane, across lanes and across warps
-BANDED_TIMED = (64, 2048, 2048, 256)  # 3e: the engine's full batch at bucket 2,048, default band
+# 3e's JSON row: 64 pairs at bucket 2,048 with the default band, the plain route's full batch (the
+# kernel route sends up to the engine's batch_size, 512: phase 4's launches carry 439-533 pairs at
+# W 256 and 512, timed by the sweep's (512, 2048, 2048, W) batches)
+BANDED_TIMED = (64, 2048, 2048, 256)
+# 2b: the edges of the kernel's table (each band-width class's upper W and one past it), and
+# one batch above the plain route's 128 MB cap (64 pairs here) and the engine's batch_size
+BANDED_CLASS_EDGES = [128, 129, 256, 257, 384, 385, 512, 513, 1024, 1025, 2048, 2049, 4096, 4097]
+BANDED_OVER_CAP = (520, 2048, 2048, 256)
+# 3e's sweep of the kernel's columns a lane (C) per band-width class (its upper W): the
+# engine's batches in the class, (B, Lq, Lt, W), with the cap lifted (phase 4's rescore
+# buckets hold 439-533 pairs at W 256 and 512: scripts/torch_banded_buckets.py), and the C
+# that keep >= 4 warps a pair at every W of the class and <= 16 (banded_cuda.MAX_THREADS)
+BANDED_SWEEP = {128: [(64, 2048, 128, 128)],
+                256: [(64, 2048, 2048, 256), (512, 2048, 2048, 256)],
+                384: [(64, 2048, 1024, 384)],
+                512: [(32, 2048, 1024, 512), (512, 1024, 2048, 512), (512, 2048, 2048, 512)],
+                1024: [(64, 2048, 2048, 1024)],
+                2048: [(8, 2048, 2048, 2048), (64, 2048, 2048, 2048)]}
+BANDED_SWEEP_COLUMNS = {128: (1,), 256: (1, 2), 384: (1, 2), 512: (1, 2, 4), 1024: (2, 4), 2048: (4, 8)}
 # (B, Lq, Lt) at the edges of the kernel's mapping: a lane, a warp of 32*C
 # columns (C = 4, 8, 16) and one past it, 2 to 8 warps per pair
 EDGE_SHAPES = [(13, 100, 1), (5, 64, 31), (13, 40, 33), (64, 80, 65), (5, 300, 129),
@@ -936,8 +963,10 @@ def phase_banded_exact(ctx):
     lengths of 1), two of the three modes (gap_window 64, 0, ungapped)
     each, bias off on every other one, and gaps 28/3 on the ragged case;
     the windows of BANDED_WINDOWS at one, four and eight warps a pair; the
-    engine's full batches (BANDED_ENGINE) in both engine modes; the
-    widest band, and one past it refused.  Returns the largest |best|
+    engine's full batches (BANDED_ENGINE) in both engine modes; the edges
+    of the kernel's table (BANDED_CLASS_EDGES) and a batch of
+    BANDED_OVER_CAP pairs, both engine modes; the widest band, and one
+    past it refused.  Returns the largest |best|
     difference per mode (0 when exact)."""
     import torch
 
@@ -984,6 +1013,15 @@ def phase_banded_exact(ctx):
         for kw in (dict(gap_window=64), dict(ungapped=True)):
             best = held(arrays, dict(W=W, **kw), f"the engine's batch B={B} Lq={Lq} Lt={Lt}")[0]
             check(float(best.min()) > 0, f"2b: a planted pair scored 0 at B={B} Lq={Lq} W={W}")
+    for W in BANDED_CLASS_EDGES:
+        arrays, go, ge = banded_edge_pairs(ctx["rng"], "ragged", 6, 300, W + 300, W)
+        for kw in (dict(gap_window=64), dict(ungapped=True)):
+            held(arrays, dict(W=W, go=go, ge=ge, **kw), f"the table's edge W={W}")
+    B, Lq, Lt, W = BANDED_OVER_CAP
+    arrays = _band_pairs(ctx["rng"], B, Lq, Lt)
+    for kw in (dict(gap_window=64), dict(ungapped=True)):
+        best = held(arrays, dict(W=W, **kw), f"a batch of {B} pairs above the old cap")[0]
+        check(float(best.min()) > 0, f"2b: a planted pair scored 0 in the batch of {B}")
     W = banded_cuda.MAX_W
     arrays, go, ge = banded_edge_pairs(ctx["rng"], "ragged", 4, 48, W + 100, W)
     for kw in modes:
@@ -1092,8 +1130,8 @@ def phase_banded_times(ctx, reps=20):
     from unicore_tpu_torch.ops.banded import sw_forward_banded
 
     saa, s3d = ctx["saa"], ctx["s3d"]
-    log(f"[phase 3e] banded SW, B Lq Lt W mode | kernel ms | plain ms | bound ms (ops, bytes) | share of bound "
-        f"({ctx['smi']})")
+    log(f"[phase 3e] banded SW, B Lq Lt W mode | kernel ms | us per row | plain ms | bound ms (ops, bytes) | "
+        f"share of bound ({ctx['smi']})")
     timing = {}
     for B, Lq, Lt, W in BANDED_ENGINE:
         t = band_pairs_on(_band_pairs(ctx["rng"], B, Lq, Lt), ctx["dev"])
@@ -1104,9 +1142,44 @@ def phase_banded_times(ctx, reps=20):
             if (B, Lq, Lt, W) == BANDED_TIMED:
                 timing[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-            log(f"  {B:3d} {Lq:5d} {Lt:5d} {W:5d} {kind:8s} | {ms:9.4f} | {plain_ms:9.2f} | {bound_ms:.4f} "
-                f"({ops_ms:.4f}, {bytes_ms:.5f}) | {100 * bound_ms / ms:.2f} %")
+            log(f"  {B:3d} {Lq:5d} {Lt:5d} {W:5d} {kind:8s} | {ms:9.4f} | {1e3 * ms / Lq:7.4f} | {plain_ms:9.2f} | "
+                f"{bound_ms:.4f} ({ops_ms:.4f}, {bytes_ms:.5f}) | {100 * bound_ms / ms:.2f} %")
+    phase_banded_sweep(ctx)
     return timing
+
+
+def phase_banded_sweep(ctx, reps=5):
+    """3e's sweep: every candidate C of each band-width class of
+    BANDED_SWEEP at the class's batches, per engine mode, bit-equal to the
+    table's launch and timed (CUDA events over `reps` launches); prints
+    ms per batch and their sum, the fastest C and the table's."""
+    import torch
+
+    from unicore_tpu_torch.ops import banded_cuda
+
+    saa, s3d = ctx["saa"], ctx["s3d"]
+    log(f"[phase 3e] sweep of the banded kernel's columns a lane: class W, mode | C warps | ms per batch "
+        f"(B x Lq x Lt at W) | sum ({ctx['smi']})")
+    batches = {key: [(shape, band_pairs_on(_band_pairs(ctx["rng"], *shape[:3]), ctx["dev"])) for shape in shapes]
+               for key, shapes in BANDED_SWEEP.items()}
+    for cls, shapes in batches.items():
+        for kind, kw in TIMED_MODES.items():
+            rows = []
+            for C in BANDED_SWEEP_COLUMNS[cls]:
+                per = []
+                for (B, Lq, Lt, W), t in shapes:
+                    def call():
+                        return banded_cuda.sw_forward_banded_columns(C, *t[:7], saa, s3d, W=W, qc=t[7], **kw)
+                    ref = banded_cuda.sw_forward_banded_cuda(*t[:7], saa, s3d, W=W, qc=t[7], **kw)
+                    check(all(torch.equal(a, b) for a, b in zip(ref, call())),
+                          f"3e: C {C} != the table's at {(B, Lq, Lt, W)} {kind}")
+                    per.append(time_cuda(call, reps))
+                rows.append((C, -(-cls // (32 * C)), sum(per)))
+                log(f"  {cls:5d} {kind:8s} | C {C:2d} warps {rows[-1][1]:2d} | "
+                    + ", ".join(f"{ms:.4f}" for ms in per) + f" | {sum(per):.4f}")
+            best = min(rows, key=lambda r: r[2])
+            log(f"  {cls:5d} {kind:8s} | fastest C {best[0]} warps {best[1]}; the table's C "
+                f"{banded_cuda.columns_of(cls, kind == 'ungapped')}")
 
 
 def phase_times(ctx, shapes=SHAPES, reps=50, plain_reps=2):
@@ -1532,7 +1605,8 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
         f"align.seconds {c['align.seconds']:.2f}, rescore.seconds {c['rescore.seconds']:.2f}, "
         f"banded.seconds {c.get('banded.seconds', 0.0):.2f} (inside the two before: seed "
         f"{c.get('banded.seed.seconds', 0.0):.2f}, pack {c.get('banded.pack.seconds', 0.0):.2f}, device "
-        f"{c.get('banded.device.seconds', 0.0):.2f}; {int(c.get('banded.launches', 0))} launches), "
+        f"{c.get('banded.device.seconds', 0.0):.2f}; {int(c.get('banded.launches', 0))} launches, "
+        f"banded.pairs {int(c.get('banded.pairs', 0))}, banded.buckets {int(c.get('banded.buckets', 0))}), "
         f"prefilter.featurize.seconds {c.get('prefilter.featurize.seconds', 0.0):.3f}, "
         f"stage.cluster.seconds {c['stage.cluster.seconds']:.2f}")
     log(f"  tree: genes aligned {len(genes)}, msa.cells {t['msa.cells']:.4g}, "

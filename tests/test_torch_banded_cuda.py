@@ -1,6 +1,9 @@
 """The banded SW kernel (csrc/banded.cu) against its plain version
 (ops/banded.py::sw_forward_banded) on the card, bit-exact on (best, qend,
-tend).
+tend): the edge cases, every E-window mode, the engine's batches, ties,
+|qc| past 2^24, the widest band, the edges of the kernel's table, batches
+of 1 to 600 pairs, every columns a lane the sweep may try, and queries
+past the rows the kernel stages at a time.
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -32,15 +35,19 @@ def _on_card(arrays):
     return [None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrays]
 
 
-def _held(arrays, kw, saa=SAA):
-    """Kernel against plain on the card; returns the kernel's results."""
+def _held(arrays, kw, saa=SAA, C=None):
+    """Kernel (at C columns a lane, where given, in place of its table's)
+    against plain on the card; returns the kernel's results."""
     t = _on_card(arrays)
     m = _on_card((saa, S3D))
     kind = "ungapped" if kw.get("ungapped") else "gapped"
     before = banded_cuda.LAUNCHES[kind]
-    k = banded_cuda.sw_forward_banded_cuda(*t[:7], *m, qc=t[7], **kw)
+    if C is None:
+        k = banded_cuda.sw_forward_banded_cuda(*t[:7], *m, qc=t[7], **kw)
+    else:
+        k = banded_cuda.sw_forward_banded_columns(C, *t[:7], *m, qc=t[7], **kw)
     torch.cuda.synchronize()
-    assert banded_cuda.LAUNCHES[kind] == before + 1
+    assert banded_cuda.LAUNCHES[kind] == before + (C is None)
     p = tb.sw_forward_banded(*t[:7], *m, qc=t[7], **kw)
     for a, b, name in zip(k, p, ("best", "qend", "tend")):
         assert torch.equal(a, b), (name, kw, int((a != b).sum()))
@@ -143,3 +150,72 @@ def test_widest_band():
     m = _on_card((SAA, S3D))
     with pytest.raises(ValueError, match=f"W <= {W}"):
         banded_cuda.sw_forward_banded_cuda(*t[:7], *m, W=W + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 129, 256, 257, 384, 385, 512, 513, 1024, 1025, 2048, 2049, 4096, 4097, 8192])
+def test_table_edges(W):
+    """Each band-width class's upper W in the kernel's table and one past
+    it (the next class's C), in every mode."""
+    need_cuda()
+    rng = np.random.RandomState(W)
+    arrays, go, ge = banded_edge_pairs(rng, "ragged", 6, 200, W + 200, W)
+    for mode in MODES.values():
+        _held(arrays, dict(W=W, go=go, ge=ge, **mode))
+
+
+@pytest.mark.cuda
+def test_table_spreads_a_pair_over_four_warps():
+    """At every W the engine sends (multiples of 128 up to 2,048, and the
+    power-of-two buckets), the table's C gives a pair >= 4 warps."""
+    need_cuda()
+    for W in sorted(set(range(128, 2049, 128))):
+        for ungapped in (False, True):
+            C = banded_cuda.columns_of(W, ungapped)
+            assert -(-W // (32 * C)) >= 4, (W, ungapped, C)
+            assert -(-W // (32 * C)) * 32 <= banded_cuda.MAX_THREADS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2, 3, 17, 64, 513, 600])
+def test_batch_sizes(B):
+    """From one pair to more than the engine's batch_size (512), one
+    block a pair, at the table's C and at C = 1."""
+    need_cuda()
+    arrays = _planted(B, B, 300, 320, True)
+    for mode in ("w64", "ungapped"):
+        _held(arrays, dict(W=256, **MODES[mode]))
+        _held(arrays, dict(W=256, **MODES[mode]), C=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", banded_cuda.COLUMNS)
+def test_tilings(C):
+    """Every tiling (C columns a lane; a block is one pair) the sweep of
+    chip_smoke.py phase 3e may try, at a W of 2, 7 and 16 warps a pair:
+    bit-exact."""
+    need_cuda()
+    rng = np.random.RandomState(C)
+    for W in (64 * C, 200 * C, 512 * C):
+        if W > banded_cuda.MAX_W:
+            continue
+        arrays, go, ge = banded_edge_pairs(rng, "ragged", 9, 150, W + 150, W)
+        for mode in MODES.values():
+            _held(arrays, dict(W=W, go=go, ge=ge, **mode), C=C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq", [banded_cuda.STAGE_ROWS - 1, banded_cuda.STAGE_ROWS, banded_cuda.STAGE_ROWS + 1,
+                                2 * banded_cuda.STAGE_ROWS + 500])
+def test_staged_rows(Lq):
+    """Queries up to, at and past the rows the kernel stages at a time (the
+    window refilled once and twice), targets past them, with a fractional
+    matrix so that every row runs, and with the integer one."""
+    need_cuda()
+    rng = np.random.RandomState(Lq)
+    arrays, go, ge = banded_edge_pairs(rng, "full", 3, Lq, Lq + 700, 256)
+    arrays[4][0] = Lq - 3  # one pair's rows end before the window's
+    frac = (SAA + np.float32(0.375)).astype(np.float32)
+    for saa in (SAA, frac):
+        for mode in MODES.values():
+            _held(arrays, dict(W=256, go=go, ge=ge, **mode), saa=saa)

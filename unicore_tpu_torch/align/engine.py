@@ -160,6 +160,21 @@ class Hit:
     gapopen: int = 0
 
 
+# the plain banded row loop's (B, LQ, W) float32 band: its batches stay
+# under this many bytes
+PLAIN_BAND_BYTES = 128 * 2**20
+
+
+def banded_batch_size(batch_size: int, LQ: int, W: int, kernel_route: bool) -> int:
+    """Pairs per banded batch of a (LQ, ., W) bucket.  The kernel route (a
+    CUDA device, no mesh) holds no band per pair, so it takes the engine's
+    `batch_size`; the plain row loop (the CPU) and the sharded route build
+    the (B, LQ, W) band and stay under PLAIN_BAND_BYTES, 8 pairs at least."""
+    if kernel_route:
+        return batch_size
+    return min(batch_size, max(8, PLAIN_BAND_BYTES // (LQ * W * 4)))
+
+
 def _bucket(n: int, minimum: int = 128) -> int:
     b = minimum
     while b < n:
@@ -364,42 +379,19 @@ class AlignmentEngine:
         return out
 
     # ------------------------------------------------------------------
-    def _banded_pass(
-        self, entries: List[tuple], ungapped: bool = False,
-        counter: str = "align",
-    ) -> Dict[int, Tuple[float, int, int]]:
-        """Banded SW for long pairs (ops/banded.py).
-
-        Host k-mer diagonal vote -> width-W band around the seed diagonal
-        -> device band scan, O(Lq*W) per pair.  Pairs with zero k-mer
-        matches score 0 (nothing a 6-mer-free pair could contribute past
-        the gates).  Same dispatch-then-collect overlap as _sw_pass.
-
-        Counters: `banded.seconds` is the pass's host wall, split into
-        `banded.seed.seconds` (the diagonal votes and the seed-evidence
-        gate), `banded.pack.seconds` (padding and the copies to the device)
-        and `banded.device.seconds` (the full-SW fallback, dispatch and
-        collection); `banded.launches` counts the batches dispatched."""
-        from unicore_tpu_torch.ops.banded import sw_forward_banded_sharded, vote_diagonal
-        from unicore_tpu_torch.ops.banded_cuda import sw_forward_banded_cuda
-        from unicore_tpu_torch.runtime import profiling
+    def _banded_buckets(self, entries: List[tuple]) -> Tuple[
+        Dict[Tuple[int, int, int], List[tuple]], List[tuple], List[int]
+    ]:
+        """The banded pass's seeding: each pair's seed diagonal and band
+        width, by (LQ, LT, W) bucket.  Returns (buckets {(LQ, LT, W):
+        [(key, qa, qs, ta, ts, qc, d0)]}, the pairs for full SW, the keys
+        that score 0)."""
+        from unicore_tpu_torch.ops.banded import vote_diagonal
 
         p = self.params
-        dev = self.device
-        mesh = mesh_mod.local_mesh(dev)
-        t0 = time.time()
-        split = {"seed": 0.0, "pack": 0.0, "device": 0.0}
-        lap = [t0]
-
-        def charge(part: str) -> None:
-            """Add the time since the last charge to `part`."""
-            now = time.time()
-            split[part] += now - lap[0]
-            lap[0] = now
-
-        out: Dict[int, Tuple[float, int, int]] = {}
         buckets: Dict[Tuple[int, int, int], List[tuple]] = {}
         full_fallback: List[tuple] = []
+        unseeded: List[int] = []
         entries = [e if len(e) == 6 else (*e, None) for e in entries]
         for key, eqa, eqs, eta, ets, eqc in entries:
             d0 = vote_diagonal(eqa, eqs, eta, ets)
@@ -421,7 +413,7 @@ class AlignmentEngine:
                     if has_seed_evidence(eqa, eqs, eta, ets):
                         full_fallback.append((key, eqa, eqs, eta, ets, eqc))
                     else:
-                        out[key] = (0.0, 0, 0)
+                        unseeded.append(key)
                     continue
                 wide = 1
             LQ = _bucket(len(eqa))
@@ -430,6 +422,45 @@ class AlignmentEngine:
                     _round_up(abs(len(eqa) - len(eta)) + 128, 128))
             W = min(W, LT)  # a band wider than the target is the full matrix
             buckets.setdefault((LQ, LT, W), []).append((key, eqa, eqs, eta, ets, eqc, d0))
+        return buckets, full_fallback, unseeded
+
+    def _banded_pass(
+        self, entries: List[tuple], ungapped: bool = False,
+        counter: str = "align",
+    ) -> Dict[int, Tuple[float, int, int]]:
+        """Banded SW for long pairs (ops/banded.py).
+
+        Host k-mer diagonal vote -> width-W band around the seed diagonal
+        -> device band scan, O(Lq*W) per pair.  Pairs with zero k-mer
+        matches score 0 (nothing a 6-mer-free pair could contribute past
+        the gates).  Same dispatch-then-collect overlap as _sw_pass.
+
+        Counters: `banded.seconds` is the pass's host wall, split into
+        `banded.seed.seconds` (the diagonal votes and the seed-evidence
+        gate), `banded.pack.seconds` (padding and the copies to the device)
+        and `banded.device.seconds` (the full-SW fallback, dispatch and
+        collection); `banded.launches` counts the batches dispatched,
+        `banded.pairs` the seeded pairs they carry (padding not counted)
+        and `banded.buckets` their (LQ, LT, W) buckets."""
+        from unicore_tpu_torch.ops.banded import sw_forward_banded_sharded
+        from unicore_tpu_torch.ops.banded_cuda import sw_forward_banded_cuda
+        from unicore_tpu_torch.runtime import profiling
+
+        p = self.params
+        dev = self.device
+        mesh = mesh_mod.local_mesh(dev)
+        t0 = time.time()
+        split = {"seed": 0.0, "pack": 0.0, "device": 0.0}
+        lap = [t0]
+
+        def charge(part: str) -> None:
+            """Add the time since the last charge to `part`."""
+            now = time.time()
+            split[part] += now - lap[0]
+            lap[0] = now
+
+        buckets, full_fallback, unseeded = self._banded_buckets(entries)
+        out: Dict[int, Tuple[float, int, int]] = {key: (0.0, 0, 0) for key in unseeded}
         charge("seed")
         if full_fallback:
             out.update(self._sw_pass(
@@ -438,9 +469,11 @@ class AlignmentEngine:
             ))
         charge("device")
         inflight = []
+        kernel_route = mesh is None and torch.device(dev).type == "cuda"
+        profiling.add_counter("banded.buckets", float(len(buckets)))
         for (LQ, LT, W), items in sorted(buckets.items()):
-            # the (B, LQ, W) f32 band tensor bounds the memory: cap ~128 MB
-            bsz = min(p.batch_size, max(8, (128 * 2**20) // (LQ * W * 4)))
+            bsz = banded_batch_size(p.batch_size, LQ, W, kernel_route)
+            profiling.add_counter("banded.pairs", float(len(items)))
             for s0 in range(0, len(items), bsz):
                 chunk = items[s0 : s0 + bsz]
                 # pow2 batch classes for single-chunk buckets (the JAX
