@@ -45,8 +45,11 @@ failure, and no phase is skipped:
    (go < ge among them) x tests/test_torch_dirbits_kernel.py's shapes x
    random and tie scores x int16 and int32 S; the callers' full batches
    (NW 64 x 512², 16 x 2,048²; SW 64 x 64², 64 x 512², 32 x 1,024², 8 x
-   2,048²) and B = 1 on their own generators' every kind; rows past one
-   block's tile of 4,096 columns (3 x 50 x 4,097, 1 x 300 x 9,000).
+   2,048²) and B = 1 on their own generators' every kind, one scan a row
+   (go >= ge) and two (go < ge) on each; each row-width class's upper
+   edge of the kernel's table and one past it (DIRBITS_CLASSES, the
+   table's C) in both scan modes; rows past one tile of 4,096 columns
+   (3 x 50 x 4,097, 1 x 300 x 9,000).
 3. Times per shape and mode (CUDA events around a run of back-to-back
    launches, divided by their number, after a warm-up): kernel ms and
    GCUPS, the plain version's ms on the card, the bound, and the kernel's
@@ -69,6 +72,18 @@ failure, and no phase is skipped:
    BANDED_SWEEP_COLUMNS: at least 4 warps a pair), bit-equal to the
    table's launch and timed at the class's batches, beside the table's
    choice.
+3f. The sweep of the direction-bit kernel's columns a lane (C) per
+   row-width class (DIRBITS_CLASSES: 64 to 4,096 columns), both
+   instances, at the callers' full batches (dirbits_full_batch: NW int32
+   as the merge pipeline packs it, SW int16 as sw_traceback_batch does):
+   every C whose row is one tile, bit-equal to the table's launch and
+   timed (CUDA events), ms and us per row beside the table's choice.
+   Then, after phase 7a, the main path's launch shapes (phase 4's and
+   7a's histograms, from the CLI's counters): per instance and bucket, a
+   batch of the bucket's largest B held bit-identical to the plain
+   version and timed, that time standing for each of the bucket's
+   launches (the kernel's time is flat in B below the SM count):
+   launches x (ms - bound) per bucket and instance, summed.
 3b. The MSA's NW forward (ops/nw_device.py, PyTorch ops) on the card
    against the same function on the CPU, bit-identical on (bits, end_i,
    end_j, score): buckets 64, 512 and 2,048, batches of 1 and 64 (16 at
@@ -437,6 +452,11 @@ DIRBITS_GRID = [(6, 24, 17), (1, 1, 1)]
 DIRBITS_FULL = {"nw": [(64, 512), (16, 2048), (1, 512)],
                 "sw_bits": [(64, 64), (64, 512), (32, 1024), (8, 2048), (1, 2048)]}
 DIRBITS_WIDE = [(3, 50, 4097), (1, 300, 9000)]  # (B, L1, L2)
+# 2c and 3f: the row-width classes of the kernel's table (their upper L2;
+# past the last, tiles of 4,096 columns); 2c holds each edge and one past
+# it at (B, L1) = DIRBITS_EDGE_BATCH
+DIRBITS_CLASSES = [64, 128, 256, 512, 1024, 2048, 4096]
+DIRBITS_EDGE_BATCH = (3, 24)
 # integer operations a cell, counted from the recurrence: F 3 (two
 # subtractions, max), h0 2 (add, max), Escan 3 (add j*ge, prefix max,
 # subtract j*ge + go - ge), H 1, E 3 (as Escan), bits 8 (four comparisons,
@@ -1045,8 +1065,9 @@ def phase_dirbits_exact(ctx):
     every kind of synthetic.dirbits_scores x int16 and int32 S; the
     callers' full batches (DIRBITS_FULL) on every kind of their own
     generators (nw_scores, sw_windows), S and the gaps alternating; the
-    rows past one tile (DIRBITS_WIDE).  Returns the largest |score|
-    difference per instance (0 when exact)."""
+    rows past one tile (DIRBITS_WIDE); each row-width class's edge and one
+    past it (DIRBITS_CLASSES) with one scan a row and with two.  Returns
+    the largest |score| difference per instance (0 when exact)."""
     import torch
 
     from unicore_tpu_torch.ops import dirbits_cuda, nw_device, sw_bits
@@ -1090,9 +1111,14 @@ def phase_dirbits_exact(ctx):
             for m, sk in enumerate(DIRBITS_KINDS):
                 dtype = (np.int16, np.int32)[(n + m) % 2]
                 held(kind, dirbits_scores(rng, *shape, sk, dtype), *caller, f"{shape} {sk}")
+        for n, L2 in enumerate(w + d for w in DIRBITS_CLASSES for d in (0, 1)):
+            for m, gaps in enumerate((caller, DIRBITS_GAPS[4])):  # one scan a row, two
+                dtype = (np.int16, np.int32)[(n + m) % 2]
+                held(kind, dirbits_scores(rng, *DIRBITS_EDGE_BATCH, L2, DIRBITS_KINDS[m], dtype), *gaps,
+                     f"{(*DIRBITS_EDGE_BATCH, L2)} class edge, C {dirbits_cuda.columns_of(L2)}")
     log(f"[phase 2c] {n_cmp} direction-bit kernel-vs-plain comparisons (NW and SW) bit-identical on whole bits "
-        f"arrays and (end_i, end_j, score), rows up to {max(s[2] for s in DIRBITS_WIDE)} columns, in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"arrays and (end_i, end_j, score), rows up to {max(s[2] for s in DIRBITS_WIDE)} columns, the table's "
+        f"class edges, one scan and two scans a row, in {time.perf_counter() - t0:.1f} s")
     return max_err
 
 
@@ -1304,13 +1330,153 @@ def dirbits_times(ctx, kind, d, plain, kernel, gaps, reps=20, cpu=True):
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def dirbits_full_batch(kind, Lb):
+    """The callers' full batch at bucket Lb: the merge pipeline's 64 pairs
+    or 64 MB of int32 scores (NW), sw_traceback_batch's 64 windows or 64
+    MB of int16 (SW)."""
+    return max(1, min(64, (64 << 20) // (Lb * Lb * (4 if kind == "nw" else 2))))
+
+
+def dirbits_batch(ctx, kind, B, Lb):
+    """(S, l1, l2) on the card: a batch as the callers make it (NW int32
+    merge scores, SW int16 hit windows), random kinds."""
+    import torch
+
+    from unicore_tpu_torch.synthetic import nw_scores, sw_windows
+
+    if kind == "nw":
+        S, l1, l2 = nw_scores(ctx["rng"], B, Lb, Lb, "rand")
+        S = S.astype(np.int32)
+    else:
+        S, l1, l2 = sw_windows(ctx["rng"], B, Lb, "rand")
+    return [torch.from_numpy(x).to(ctx["dev"]) for x in (S, l1, l2)]
+
+
+def phase_dirbits_sweep(ctx, reps=5):
+    """Phase 3f: every C (columns a lane) whose row is one tile, for each
+    row-width class of DIRBITS_CLASSES and both instances at the callers'
+    full batch (dirbits_full_batch), bit-equal to the table's launch and
+    timed (CUDA events over `reps` launches).  Prints ms and us per row,
+    the fastest C and the table's; returns {(kind, class): {C: ms}}."""
+    import torch
+
+    from unicore_tpu_torch.ops import dirbits_cuda
+
+    gaps = {"nw": NW_GAPS[0], "sw_bits": SWB_GAPS[0]}
+    log(f"[phase 3f] sweep of the direction-bit kernel's columns a lane: instance class L2 (B x L1 x L2) | C warps "
+        f"ms (us per row) | fastest, the table's C ({ctx['smi']})")
+    out = {}
+    for kind in ("nw", "sw_bits"):
+        local = kind == "sw_bits"
+        wrapper = dirbits_cuda.nw_forward_bits_cuda if kind == "nw" else dirbits_cuda.sw_forward_bits_cuda
+        for Lb in DIRBITS_CLASSES:
+            B = dirbits_full_batch(kind, Lb)
+            d = dirbits_batch(ctx, kind, B, Lb)
+            ref = wrapper(*d, *gaps[kind])
+            table_c = dirbits_cuda.columns_of(Lb)
+
+            def call(C):
+                return dirbits_cuda.forward_bits_columns(C, *d, *gaps[kind], local)
+            row = {}
+            for C in dirbits_cuda.COLUMNS:
+                if Lb > dirbits_cuda.band_threads(C) * C or Lb < 8 * C:
+                    continue  # a row of several bands, or fewer than 8 lanes
+                check(all(torch.equal(a, b) for a, b in zip(ref, call(C))),
+                      f"3f: {kind} C {C} != the table's at {(B, Lb, Lb)}")
+                row[C] = time_cuda(lambda: call(C), reps)
+            fastest = min(row, key=row.get)
+            log(f"  {kind:7s} {Lb:5d} ({B} x {Lb} x {Lb}) | "
+                + ", ".join(f"C {c} warps {-(-Lb // (32 * c))} {ms:.4f} ({1e3 * ms / Lb:.4f})" for c, ms in row.items())
+                + f" | fastest C {fastest}, the table's C {table_c}")
+            out[(kind, Lb)] = row
+    return out
+
+
+def dirbits_shapes(counters):
+    """{"nw", "sw_bits"}: {(B, L1, L2): launches} summed over CLI runs'
+    counters {stage: counters} (ops/dirbits_cuda.shape_counters)."""
+    out = {"nw": {}, "sw_bits": {}}
+    for c in counters.values():
+        for key, n in c.items():
+            if key.startswith("kernel.dirbits.") and ".shape." in key:
+                kind, shape = key[len("kernel.dirbits."):].split(".shape.")
+                shape = tuple(int(v) for v in shape.split("x"))
+                out[kind][shape] = out[kind].get(shape, 0) + int(n)
+    return out
+
+
+def merge_shapes(*hists):
+    """The launch-shape histograms of several runs, summed."""
+    out = {"nw": {}, "sw_bits": {}}
+    for h in hists:
+        for kind, shapes in h.items():
+            for shape, n in shapes.items():
+                out[kind][shape] = out[kind].get(shape, 0) + n
+    return out
+
+
+def log_dirbits_shapes(what, shapes):
+    for kind, hist in shapes.items():
+        if hist:
+            log(f"  {what}: direction-bit kernel launch shapes, {kind} (B x L1 x L2: launches): "
+                + ", ".join(f"{B}x{L1}x{L2}: {n}" for (B, L1, L2), n in sorted(hist.items(), key=lambda kv: kv[0][::-1])))
+
+
+def phase_dirbits_shape_times(ctx, shapes, reps=5):
+    """After phase 7a: the main path's launch shapes `shapes` ({kind: {(B,
+    L1, L2): launches}}, phase 4's and 7a's histograms).  Per instance and
+    bucket, one batch of the bucket's largest B on the callers' kind of
+    scores and gaps, held bit-identical to the plain version on (bits,
+    end_i, end_j, score) at the table's C, and timed (CUDA
+    events over `reps` launches); that time stands for each of the
+    bucket's launches, the kernel's time being flat in B below the SM
+    count (at most a little high for the smaller B).  Prints per bucket
+    the launches, their B, the time, and launches x (ms - bound) with each
+    launch's own bound, summed per instance; returns {kind: (launches,
+    kernel ms, launches x gap ms)}.  These launches are not counted in
+    LAUNCHES: the main path's count was read before."""
+    import torch
+
+    from unicore_tpu_torch.ops import dirbits_cuda, nw_device, sw_bits
+
+    gaps = {"nw": NW_GAPS[0], "sw_bits": SWB_GAPS[0]}
+    plain = {"nw": nw_device.nw_forward_bits, "sw_bits": sw_bits.sw_forward_bits}
+    log(f"[phase 3f, main-path shapes] instance bucket | launches (B) | kernel ms at the largest B, bit-identical "
+        f"to plain | launches x (ms - bound) ({ctx['smi']})")
+    out = {}
+    for kind, hist in shapes.items():
+        buckets = {}  # bucket: {B: launches}
+        for (B, L1, L2), n in hist.items():
+            check(L1 == L2, f"3f: a {kind} launch of {B} x {L1} x {L2} is not square")
+            buckets.setdefault(L1, {})[B] = n
+        n_all, ms_all, gap_all = 0, 0.0, 0.0
+        for Lb, by_b in sorted(buckets.items()):
+            d = dirbits_batch(ctx, kind, max(by_b), Lb)
+            got = dirbits_cuda.forward_bits_columns(dirbits_cuda.columns_of(Lb), *d, *gaps[kind], kind == "sw_bits")
+            for name, a, b in zip(("bits", "end_i", "end_j", "score"), got, plain[kind](*d, *gaps[kind])):
+                check(torch.equal(a, b), f"3f: {kind} kernel != plain in {name} at the main-path batch "
+                                         f"{max(by_b)} x {Lb} x {Lb}: {int((a != b).sum())} differ")
+            ms = time_cuda(lambda: dirbits_cuda.forward_bits_columns(
+                dirbits_cuda.columns_of(Lb), *d, *gaps[kind], kind == "sw_bits"), reps)
+            n = sum(by_b.values())
+            gap = sum(k * (ms - dirbits_bound(ctx, d[0][:B], kind)[0]) for B, k in by_b.items())
+            n_all, ms_all, gap_all = n_all + n, ms_all + n * ms, gap_all + gap
+            log(f"  {kind:7s} {Lb:5d} | {n:3d} (B {min(by_b)}-{max(by_b)}) | {ms:9.4f} | {gap:.3f}")
+        if n_all:
+            log(f"  {kind:7s} all: {n_all} launches, {ms_all:.3f} ms of kernel time, launches x (ms - bound) "
+                f"{gap_all:.3f} ms")
+        out[kind] = (n_all, ms_all, gap_all)
+    return out
+
+
 def log_dirbits_times(what, timing):
-    log(f"[{what}] bucket batch S | kernel ms | plain ms per dispatch | CPU ms | plain's device busy ms in one "
-        f"profiled dispatch (its wall ms) | bound ms (ops, bytes) | kernel's share of bound")
+    log(f"[{what}] bucket batch S | kernel ms (us per row) | plain ms per dispatch | CPU ms | plain's device busy "
+        f"ms in one profiled dispatch (its wall ms) | bound ms (ops, bytes) | kernel's share of bound")
     for (Lb, B, dtype), x in timing.items():
         busy = "not measured" if x["busy_ms"] is None else f"{x['busy_ms']:.2f}"
         cpu = "not timed" if x["cpu_ms"] is None else f"{x['cpu_ms']:9.2f}"
-        log(f"  {Lb:6d} {B:5d} {dtype:5s} | {x['kernel_ms']:9.4f} | {x['ms']:10.2f} | {cpu} | "
+        log(f"  {Lb:6d} {B:5d} {dtype:5s} | {x['kernel_ms']:9.4f} ({1e3 * x['kernel_ms'] / Lb:.4f}) | "
+            f"{x['ms']:10.2f} | {cpu} | "
             f"{busy} ({x['profiled_wall_ms']:.2f}) | {x['bound_ms']:.4f} ({x['ops_ms']:.4f}, "
             f"{x['bytes_ms']:.4f}) | {100 * x['bound_ms'] / x['kernel_ms']:.2f} %")
 
@@ -1622,7 +1788,11 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
     check(t["msa.dispatches"] > 0, "the tree stage ran no NW forward")
     check(nw["nw"] == int(t["msa.dispatches"]),
           f"phase 4: {int(t['msa.dispatches'])} NW forward dispatches, {nw['nw']} direction-bit kernel launches")
+    shapes = dirbits_shapes(counters)
+    log_dirbits_shapes("phase 4", shapes)
+    check(sum(shapes["nw"].values()) == nw["nw"], f"phase 4: the launch shapes count {shapes['nw']}, not {nw['nw']}")
     launches.update(nw)
+    launches["dirbits_shapes"] = shapes
     return launches, phase_inference(work, out_dir, n_species)
 
 
@@ -1722,6 +1892,11 @@ def phase_search(ctx, work):
           f"7a: {int(c['traceback.dispatches'])} traceback forward dispatches, {launches['sw_bits']} "
           f"direction-bit kernel launches")
     check_banded_route(c, launches, "7a")
+    shapes = dirbits_shapes(counters)
+    log_dirbits_shapes("7a", shapes)
+    check(sum(shapes["sw_bits"].values()) == launches["sw_bits"],
+          f"7a: the launch shapes count {shapes['sw_bits']}, not {launches['sw_bits']}")
+    launches["dirbits_shapes"] = shapes
     check(open(os.path.join(s_dir, "search", "search.chk")).read() == "1", "7a: search.chk does not read 1")
     n_long = sum(L > 1024 for L in lengths)
     check(n_long == 0 or c.get("traceback.banded", 0) > 0, "7a: no window took the banded traceback")
@@ -3424,7 +3599,7 @@ def main() -> int:
     try:
         ctx, max_err, inputs = checks_beside_cpu_run(work)
         # from here on nothing runs beside the timed phases
-        log(f"[{clock():.1f} s] phases 3, 3b, 3c, 3d and 3e, timed ({ctx['smi']})")
+        log(f"[{clock():.1f} s] phases 3, 3b, 3c, 3d, 3e and 3f, timed ({ctx['smi']})")
         with span("phase 3, times"):
             timing = phase_times(ctx)
         with span("phase 3b, times"):
@@ -3435,10 +3610,14 @@ def main() -> int:
             swb_timing = phase_sw_bits_times(ctx, inputs["sw_bits"])
         with span("phase 3e, times"):
             banded_timing = phase_banded_times(ctx)
+        with span("phase 3f, times"):
+            phase_dirbits_sweep(ctx)
         with span("phase 4"):
             launches, inference = phase_slice(work)
         with span("phase 7a"):
             search_launches = phase_search(ctx, work)
+        with span("phase 3f, main-path shapes"):
+            phase_dirbits_shape_times(ctx, merge_shapes(launches["dirbits_shapes"], search_launches["dirbits_shapes"]))
         with span("phase 7d"):
             phase_partition(ctx, work, inference)
         with span("phase 6c"):

@@ -1,8 +1,11 @@
 """The direction-bit DP kernel (csrc/dirbits.cu, both instances) against
 its plain versions (ops/nw_device.py::nw_forward_bits and
 ops/sw_bits.py::sw_forward_bits) on the card, bit-identical on whole
-(B, L1, L2) bits arrays and on (end_i, end_j, score); and the callers'
-launches.
+(B, L1, L2) bits arrays and on (end_i, end_j, score): the callers' full
+batches, odd and wide shapes, each row-width class's edge and one past
+it, every C through `forward_bits_columns`, one scan a row (go >= ge)
+and two (go < ge); and
+the callers' launches and their shapes.
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -31,17 +34,23 @@ SW_BATCHES = [(64, 64), (64, 512), (32, 1024), (8, 2048), (1, 512)]
 ODD = [(1, 1, 1), (5, 7, 13), (3, 33, 257), (2, 100, 4096), (3, 50, 4097), (2, 40, 8192), (1, 300, 9000)]
 KERNELS = {"nw": (dirbits_cuda.nw_forward_bits_cuda, nw_device.nw_forward_bits),
            "sw": (dirbits_cuda.sw_forward_bits_cuda, sw_bits.sw_forward_bits)}
+# the kernel table's row-width classes (upper L2), each edge and one past it
+CLASS_EDGES = [w + d for w in (64, 128, 256, 512, 1024, 2048, 4096) for d in (0, 1)]
 
 
-def _held(fn, S, l1, l2, go, ge):
-    """Kernel against plain on the card; returns the kernel's results."""
+def _held(fn, S, l1, l2, go, ge, C=None):
+    """Kernel (the wrapper, or at C columns a lane) against plain on the
+    card; returns the kernel's results."""
     kernel, plain = KERNELS[fn]
     t = [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (S, l1, l2)]
     kind = "nw" if fn == "nw" else "sw_bits"
     before = dirbits_cuda.LAUNCHES[kind]
-    k = kernel(*t, go, ge)
+    if C is None:
+        k = kernel(*t, go, ge)
+    else:
+        k = dirbits_cuda.forward_bits_columns(C, *t, go, ge, fn == "sw")
     torch.cuda.synchronize()
-    assert dirbits_cuda.LAUNCHES[kind] == before + 1
+    assert dirbits_cuda.LAUNCHES[kind] == before + (C is None)
     p = plain(*t, go, ge)
     for a, b, name in zip(k, p, ("bits", "end_i", "end_j", "score")):
         assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape, name
@@ -83,6 +92,52 @@ def test_odd_and_wide_shapes(fn, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fn", list(KERNELS))
+@pytest.mark.parametrize("L2", CLASS_EDGES)
+def test_width_class_edges(fn, L2):
+    """Each row-width class's upper edge and one past it at the table's C,
+    one scan a row (the callers' gaps, go == ge) and two (go < ge)."""
+    need_cuda()
+    rng = np.random.RandomState(L2 + len(fn))
+    gaps = (NW_GAPS[0] if fn == "nw" else SW_GAPS[0], (10, 10), NW_GAPS[2])
+    for n, (go, ge) in enumerate(gaps):
+        _held(fn, *dirbits_scores(rng, 3, 24, L2, DIRBITS_KINDS[n % 2], (np.int16, np.int32)[(n + L2) % 2]), go, ge)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", list(KERNELS))
+@pytest.mark.parametrize("C", dirbits_cuda.COLUMNS)
+def test_every_columns_count(fn, C):
+    """Every C the kernel has (forward_bits_columns): one warp, several,
+    the widest single tile, a tile and one, and two whole tiles, int16 and
+    int32 S; one scan (the callers' gaps, go == ge) and two (go < ge)."""
+    need_cuda()
+    maxt = dirbits_cuda.band_threads(C)
+    rng = np.random.RandomState(C + len(fn))
+    caller = NW_GAPS[0] if fn == "nw" else SW_GAPS[0]
+    for n, L2 in enumerate([32 * C - 3, 128 * C, maxt * C, maxt * C + 1, 2 * maxt * C]):
+        for m, dtype in enumerate((np.int16, np.int32)):
+            arrays = dirbits_scores(rng, 3, 20, L2, DIRBITS_KINDS[(n + m) % 2], dtype)
+            for go, ge in (caller, (10, 10), (5, 20)):
+                _held(fn, *arrays, go, ge, C=C)
+
+
+@pytest.mark.cuda
+def test_callers_shapes_counted():
+    """A wrapper launch counts its (B, L1, L2) in SHAPES, which the CLI's
+    counters carry (shape_counters)."""
+    need_cuda()
+    dirbits_cuda.reset_launch_counts()
+    rng = np.random.RandomState(8)
+    for _ in range(2):
+        _held("nw", *dirbits_scores(rng, 4, 64, 64), *NW_GAPS[0])
+    _held("sw", *dirbits_scores(rng, 2, 128, 128), *SW_GAPS[0])
+    assert dirbits_cuda.SHAPES == {"nw": {(4, 64, 64): 2}, "sw_bits": {(2, 128, 128): 1}}
+    assert dirbits_cuda.shape_counters() == {"kernel.dirbits.nw.shape.4x64x64": 2,
+                                             "kernel.dirbits.sw_bits.shape.2x128x128": 1}
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_on_cuda():
     need_cuda()
     S = torch.zeros((2, 0, 5), dtype=torch.int16, device="cuda")
@@ -92,6 +147,9 @@ def test_wrapper_rejects_on_cuda():
             kernel(S, l, l, 100, 10)
         with pytest.raises(ValueError, match="on cpu"):
             kernel(torch.zeros((2, 3, 5), dtype=torch.int16, device="cuda"), l.cpu(), l, 100, 10)
+    S = torch.zeros((2, 3, 5), dtype=torch.int16, device="cuda")
+    with pytest.raises(ValueError, match="C must be one of"):
+        dirbits_cuda.forward_bits_columns(3, S, l, l, 100, 10, False)
 
 
 @pytest.mark.cuda

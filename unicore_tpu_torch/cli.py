@@ -341,7 +341,8 @@ def _dump_counters() -> None:
                               **{f"kernel.banded.{k}.launches": v
                                  for k, v in banded_cuda.LAUNCHES.items()},
                               **{f"kernel.dirbits.{k}.launches": v
-                                 for k, v in dirbits_cuda.LAUNCHES.items()}})
+                                 for k, v in dirbits_cuda.LAUNCHES.items()},
+                              **dirbits_cuda.shape_counters()})
 
 
 def main(argv=None) -> int:
