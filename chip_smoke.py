@@ -50,6 +50,22 @@ failure, and no phase is skipped:
    edge of the kernel's table and one past it (DIRBITS_CLASSES, the
    table's C) in both scan modes; rows past one tile of 4,096 columns
    (3 x 50 x 4,097, 1 x 300 x 9,000).
+2d. The SW kernel's int16 instance (dp_dtype="i16") against the plain
+   int16 DP (ops/sw.py::sw_forward_i16) on the card, bit-exact on (best,
+   qend, tend): I16_SHAPES ((512, 128) and (512, 256) at gaps 100/10, (64,
+   1,024) and (16, 2,048) at 10/1), ragged, every fourth pair a self pair
+   that reaches the cap or wraps, bias off and on (+255 on the self
+   pairs' rows: cells past the int16 contract's < 150 assumption),
+   gapped with gap windows 64 and 0 and ungapped, every mode on every
+   shape; the 512 self pair of the highest-scoring residue at ge = 1
+   capped at 30,000 at (288, 288) and wrapped after 32,760 at (314, 314),
+   as JAX's interpret mode gives; and the int16 instance equal to the
+   float32 one on every pair whose float32 best is below the cap.  The
+   int16 probe (scripts/torch_probe_i16.py: twelve int16 operations, each
+   built by its own nvcc run and launched in its own process, held
+   against numpy's wrapping arithmetic) starts with 6a, on the cores of
+   phase 5's CPU run, and is read after 2d; any probe that fails fails
+   the run.
 3. Times per shape and mode (CUDA events around a run of back-to-back
    launches, divided by their number, after a warm-up): kernel ms and
    GCUPS, the plain version's ms on the card, the bound, and the kernel's
@@ -66,7 +82,8 @@ failure, and no phase is skipped:
    on) at the engine's full batches (BANDED_ENGINE; the JSON line takes
    BANDED_TIMED, the full batch at bucket 2,048 with the default band:
    64 pairs, Lq = Lt = 2,048, W 256): kernel ms and us per row, the plain
-   version's ms on the card, and the bound by phase 3's rule on the band
+   version's ms on the card (one call, its ops warm from 2b), and the
+   bound by phase 3's rule on the band
    cells sum(qlen * W).  Then the sweep of the kernel's columns a lane:
    every candidate C of each band-width class (BANDED_SWEEP,
    BANDED_SWEEP_COLUMNS: at least 4 warps a pair), bit-equal to the
@@ -84,6 +101,11 @@ failure, and no phase is skipped:
    version and timed, that time standing for each of the bucket's
    launches (the kernel's time is flat in B below the SM count):
    launches x (ms - bound) per bucket and instance, summed.
+3g. The int16 instance beside the float32 one at I16_SHAPES (gap_window 64
+   and ungapped, bias on): both kernels' ms, the plain int16 DP's ms on
+   the card, and the int16 bound, phase 3's rule with I16_OPS_PER_CELL
+   (the score's float ops on the FP32 lanes, the int16 ops packed two to
+   an INT32 lane: both SMs x 128 x the maximum SM clock).
 3b. The MSA's NW forward (ops/nw_device.py, PyTorch ops) on the card
    against the same function on the CPU, bit-identical on (bits, end_i,
    end_j, score): buckets 64, 512 and 2,048, batches of 1 and 64 (16 at
@@ -102,15 +124,15 @@ failure, and no phase is skipped:
    the same calls on the CPU, with `torch.set_float32_matmul_precision
    ("high")` set, so the engine's full-float32 guard is what keeps TF32
    out: at 20 taxa x 8,192 columns (JTT+F+I+G) `loglik_batch` and
-   `site_loglik_batch` on 16 candidates of a 64-candidate NNI batch,
-   `loglik_nni_moves`, a 10-step `optimize_blens` and the pattern-chunked
-   path (chunks forced to 2,048 patterns; fewer candidates and steps),
+   `site_loglik_batch` on 8 candidates of a 64-candidate NNI batch,
+   `loglik_nni_moves`, a 5-step `optimize_blens` and the pattern-chunked
+   path (chunks forced to 2,048 patterns; 8 and 4 candidates, 5 steps),
    and the incremental path at 64 taxa x 1,000 columns; the CPU side is
    what costs.  Tolerances as in
    tests/test_torch_phylo.py: lnL within LL_RTOL relative, sites within
    SITE_ATOL + SITE_RTOL |s|, after Adam lnL within BLEN_LL_RTOL and
    each length within BLEN_ATOL + BLEN_RTOL len.  Then ms per
-   `loglik_batch` call (on the CPU for 16 candidates) and per Adam step,
+   `loglik_batch` call (on the CPU for 8 candidates) and per Adam step,
    the device-busy share of Adam
    steps from a torch.profiler trace, and the bound of one `loglik_batch`:
    max(flops of its products at C x 20 x 20 per category and node /
@@ -230,8 +252,9 @@ failure, and no phase is skipped:
        T5Config()'s geometry (1.2 B parameters, float16
        pytorch_model.bin drawn on the card from a seeded
        torch.Generator), through `createdb IN OUT MODEL_DIR` on CUDA (a
-       CLI subprocess) on phase 4's 20 proteomes plus one 5,000-residue
-       protein (the windowed path): every 3Di string of its protein's
+       CLI subprocess) on PROSTT5_SPECIES proteomes of phase 4's seed and
+       size (1,200 proteins) plus one 5,000-residue protein (the windowed
+       path): every 3Di string of its protein's
        length and of 3Di letters only.  Prints the stage's seconds, the
        load, residues and padded tokens per second and the peak memory;
        then, in process, ms per full batch of encoder_forward and
@@ -322,20 +345,24 @@ failure, and no phase is skipped:
 Order of the run: phase 5's CPU run (6b's CPU run beside its easy-core;
 then three sides, each in one process: 7c and 6d; tree -T raxml-ng and
 tree -T fasttree; the two other aligners and 7b) starts first, on every
-core but two, and goes on beside phase 1, the checks of phases 2, 2b, 2c,
-3b, 3c and 3d, then 6a and 6e (in a thread of their own) beside phase 5's CUDA
-run (6b beside its easy-core; then two sides, each in one process:
-raxml-ng, 7c and 6d; the rest and 7b), all on those two.  Once it has
-ended, phase 3 and the times of phases 3b, 3c, 3d and 3e, phase 4, 7a and 7d
-run with nothing beside them, then 6c, 8a, 8b, 9 and 10 (9e's and 10f-i's
-ranks beside 9d; 10f-ii alone).  Each phase's start and end on
+core but two, and goes on beside phase 1, the checks of phases 2, 2b,
+2c, 3b, 3c and 3d, then 6a, 6e and 2d (in a thread of their own) beside
+phase 5's CUDA run (6b beside its easy-core; then two sides, each in
+one process: raxml-ng, 7c and 6d; the rest and 7b), all on those two,
+and the int16 probe on the others.  Once it has ended, phase 3 and the
+times of phases 3b-3g, phase 4, 7a and 7d run with nothing beside them,
+then 6c, 8a, 8b, 9 and 10 (9e's and 10f-i's ranks beside 9d; 10f-ii
+alone).  Each phase's start and end on
 the script's clock is printed as a "[clock]" line.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel mode: launches in phase 4 and 7a, times and bound at (512, 512),
 the main path's most common bucket, for the banded kernel 3e's at
 BANDED_TIMED, for the direction-bit kernel 3b's NW at 64 x 512² (int32)
-and 3d's SW at 64 x 512² (int16); 6a
+and 3d's SW at 64 x 512² (int16), for the int16 instance 3g's at
+I16_TIMED with no launch on the main path, and for the probe the sums
+over its twelve kernels of one launch's ms, numpy's ms and the bytes'
+bound; 6a
 prints the cascade's launches;
 phases 8 and 10 add no kernel: the ProstT5 model is PyTorch ops; a row
 for the sharded route: 9d's launches, 9a's times and bound);
@@ -370,6 +397,22 @@ OPS_PER_CELL = {"gapped": 14, "ungapped": 6}  # +1 with the bias add
 LANES_PER_SM = 128      # FP32 lanes of a Hopper SM
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_SHAPE = (512, 512)
+# phases 2d and 3g, the int16 instance (dp_dtype="i16"): (B, L, go, ge), the
+# engine's buckets inside the int16 contract (L*ge + 30150 < 32767)
+I16_SHAPES = [(512, 128, 100.0, 10.0), (512, 256, 100.0, 10.0), (64, 1024, 10.0, 1.0), (16, 2048, 10.0, 1.0)]
+I16_MODES = {"gapped_w64": dict(gap_window=64), "gapped_w0": dict(gap_window=0),
+             "ungapped": dict(ungapped=True)}
+I16_TIMED = (512, 256)  # the JSON line's int16 rows
+# per cell, the operations the int16 recurrence needs (not the wraps of an
+# implementation that keeps int16 in 32-bit registers): the float32
+# count's 14 (6), of which 3 make the score, plus the score's bfloat16
+# round and its int16 conversion, and the cap (gapped only); +1 with the
+# bias add.  The score's float ops run at the FP32 lanes' rate (128 an SM
+# a clock) and the int16 ops at the packed int16x2 rate (2 x 64 INT32
+# lanes an SM a clock; scripts/torch_probe_i16.py holds those ops exact),
+# the same rate: so phase 3's peak_ops over the sum
+I16_OPS_PER_CELL = {"gapped": 17, "ungapped": 8}
+I16_CAP_PAIR = {False: (30000.0, 288, 288), True: (32760.0, 314, 314)}  # 512 self pair, ge 1
 # 2b: the banded kernel's (B, Lq, Lt, W), as tests/test_torch_banded_cuda.py: single and
 # multi-warp bands, an odd W and a W wider than the target
 BANDED_GRID = [(64, 256, 256, 128), (32, 512, 600, 256), (16, 700, 500, 512), (8, 300, 2100, 1024),
@@ -417,7 +460,7 @@ NW_GAPS = [(2816, 256), (1100, 100)]  # the MSA engines' 11/1 in QUANT units; an
 NW_TIMED = [(512, 64), (2048, 16)]  # full batches of the merge pipeline's caps
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, FP32 outside the tensor cores (data sheet)
 PHYLO = dict(n=20, L=8192, batch=64, model="JTT+F+I+G", alpha=0.7, p_inv=0.05, seed=5,
-             steps=10, cpu_batch=16)  # Adam steps and candidates of the CUDA-vs-CPU checks
+             steps=5, cpu_batch=8)  # Adam steps and candidates of the CUDA-vs-CPU checks
 PHYLO_INC = dict(n=64, L=1000, seed=6)  # the incremental NNI path starts at 48 taxa
 # likelihood tolerances, CUDA against the CPU (those of tests/test_torch_phylo.py)
 LL_RTOL, SITE_ATOL, SITE_RTOL = 1e-5, 1e-4, 1e-3
@@ -470,7 +513,8 @@ PROFILED_STEPS = 3         # ... and the profiled one
 # phase 8: ProstT5 at ProtT5-XL's width (models/prostt5.py T5Config())
 PROSTT5_SEED = 20261017
 PROSTT5_PREFIX = 128      # <AA2fold> after the 128 base pieces
-LONG_PROTEIN = 5000        # 8a: one protein past the 2,048-residue window: three windows at bucket 2,176
+PROSTT5_SPECIES = 10       # 8a: synthetic proteomes of phase 4's seed and size (1,200 proteins) ...
+LONG_PROTEIN = 5000        # ... and one protein past the 2,048-residue window: three windows at bucket 2,176
 PROSTT5_BUCKETS = (128, 384, 2176)  # 8a: full batches timed in process
 PROFILE_TOP = 8            # prostt5_profile: kernels listed per bucket
 PROSTT5_REPS = 2           # ... timed launches after two warm-ups (about 1 s each at 2,176)
@@ -609,6 +653,19 @@ def time_cuda(fn, n):
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / n
+
+
+def once_ms(fn):
+    """ms of one call of `fn` on the host's clock, synchronised on both
+    sides: for the plain versions, whose PyTorch ops earlier phases have
+    already run."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 _RUNNING = set()  # CLI subprocesses in flight, killed by stop_cli_runs()
@@ -1150,8 +1207,8 @@ def phase_banded_times(ctx, reps=20):
     """Phase 3e: the banded kernel per mode (the engine's: gap_window 64,
     ungapped; bias on) at the engine's full batches (BANDED_ENGINE): kernel
     ms (CUDA events over `reps` launches after a warm-up), the plain
-    version's ms on the card, and the bound; returns {kind: numbers} at
-    BANDED_TIMED."""
+    version's ms on the card (one call), and the bound; returns {kind:
+    numbers} at BANDED_TIMED."""
     from unicore_tpu_torch.ops import banded_cuda
     from unicore_tpu_torch.ops.banded import sw_forward_banded
 
@@ -1163,7 +1220,7 @@ def phase_banded_times(ctx, reps=20):
         t = band_pairs_on(_band_pairs(ctx["rng"], B, Lq, Lt), ctx["dev"])
         for kind, kw in TIMED_MODES.items():
             ms = time_cuda(lambda: banded_cuda.sw_forward_banded_cuda(*t[:7], saa, s3d, W=W, qc=t[7], **kw), reps)
-            plain_ms = time_cuda(lambda: sw_forward_banded(*t[:7], saa, s3d, W=W, qc=t[7], **kw), 1)
+            plain_ms = once_ms(lambda: sw_forward_banded(*t[:7], saa, s3d, W=W, qc=t[7], **kw))
             bound_ms, ops_ms, bytes_ms = banded_bound(ctx, t, W, kind)
             if (B, Lq, Lt, W) == BANDED_TIMED:
                 timing[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1233,6 +1290,133 @@ def phase_times(ctx, shapes=SHAPES, reps=50, plain_reps=2):
                 f"{plain_ms:9.2f} | {bound_ms:.4f} ({ops_ms:.4f}, {bytes_ms:.5f}) | "
                 f"{100 * bound_ms / ms:.1f} %")
     return timing
+
+
+def i16_inputs(ctx, B, L, bias):
+    """sw_inputs' pairs; every fourth a self pair, which reaches the cap
+    (gapped) or wraps (ungapped) from about 500 columns on, its rows at
+    +255 with bias on: cells past the int16 contract's < 150 assumption."""
+    args, qc = sw_inputs(ctx["rng"], B, L, bias, ctx["saa_np"], ctx["s3d_np"], ctx["dev"])
+    hot = slice(1, B, 4)
+    args[2][hot], args[3][hot], args[5][hot] = args[0][hot], args[1][hot], args[4][hot]
+    if qc is not None:
+        qc[hot] = 255
+    return args, qc
+
+
+def phase_i16_exact(ctx):
+    """Phase 2d: the int16 instance vs the plain int16 DP, bit-exact;
+    the 512 self pair's cap and wrap; the int16 instance equal to the
+    float32 one on every pair below the cap.  Returns the largest |best|
+    difference per mode."""
+    import torch
+
+    from unicore_tpu_torch.ops import sw_cuda
+    from unicore_tpu_torch.ops.sw import sw_forward_plain
+
+    saa, s3d, dev = ctx["saa"], ctx["s3d"], ctx["dev"]
+    max_err = {"gapped_i16": 0.0, "ungapped_i16": 0.0}
+    n_cmp = n_f32 = 0
+    t0 = time.perf_counter()
+    modes = list(I16_MODES.items())
+    for s, (B, L, go, ge) in enumerate(I16_SHAPES):
+        for bi, bias in enumerate(("off", "on")):
+            args, qc = i16_inputs(ctx, B, L, bias)
+            for mode, kw in modes[(s + bi) % 2::2]:  # every mode on every shape
+                k = sw_cuda.sw_forward_cuda(*args, saa, s3d, go=go, ge=ge, qc=qc, dp_dtype="i16", **kw)
+                p = sw_forward_plain(*args, saa, s3d, go=go, ge=ge, qc=qc, dp_dtype="i16", **kw)
+                torch.cuda.synchronize()
+                kind = "ungapped_i16" if mode == "ungapped" else "gapped_i16"
+                err = float((k[0] - p[0]).abs().max())
+                max_err[kind] = max(max_err[kind], err)
+                check(all(torch.equal(a, b) for a, b in zip(k, p)),
+                      f"int16 kernel != plain at B={B} L={L} {mode} bias={bias}: max |best| err {err}, "
+                      f"qend diff {int((k[1] != p[1]).sum())}, tend diff {int((k[2] != p[2]).sum())}")
+                n_cmp += 1
+        # below the cap the int16 DP is the float32 one
+        args, qc = sw_inputs(ctx["rng"], B, L, "on", ctx["saa_np"], ctx["s3d_np"], dev)
+        for mode, kw in modes:
+            a = sw_cuda.sw_forward_cuda(*args, saa, s3d, go=go, ge=ge, qc=qc, dp_dtype="i16", **kw)
+            b = sw_cuda.sw_forward_cuda(*args, saa, s3d, go=go, ge=ge, qc=qc, **kw)
+            below = b[0] < 30000
+            check(bool(below.sum() >= B // 4) and all(torch.equal(x[below], y[below]) for x, y in zip(a, b)),
+                  f"int16 kernel != float32 kernel below the cap at B={B} L={L} {mode} "
+                  f"({int(below.sum())} pairs below)")
+            n_f32 += int(below.sum())
+    code = lambda v: torch.full((1, 512), v, dtype=torch.int32, device=dev)  # noqa: E731
+    ln = torch.tensor([512], dtype=torch.int32, device=dev)
+    for ungapped, want in I16_CAP_PAIR.items():
+        pair = (code(17), code(10), code(17), code(10), ln, ln, saa, s3d)
+        k = sw_cuda.sw_forward_cuda(*pair, ge=1.0, ungapped=ungapped, dp_dtype="i16")
+        p = sw_forward_plain(*pair, ge=1.0, ungapped=ungapped, dp_dtype="i16")
+        got = (float(k[0][0]), int(k[1][0]), int(k[2][0]))
+        check(got == want and all(torch.equal(a, b) for a, b in zip(k, p)),
+              f"int16 512 self pair ungapped={ungapped}: kernel {got}, plain "
+              f"{(float(p[0][0]), int(p[1][0]), int(p[2][0]))}, JAX {want}")
+    log(f"[phase 2d] {n_cmp} int16 kernel-vs-plain comparisons bit-exact on (best, qend, tend), "
+        f"the 512 self pair capped and wrapped as in JAX, {n_f32} pairs below the cap equal to "
+        f"the float32 kernel, in {time.perf_counter() - t0:.1f} s")
+    return max_err
+
+
+def phase_i16_times(ctx, reps=20):
+    """Phase 3g: the int16 instance beside the float32 one at I16_SHAPES
+    (gap_window 64 and ungapped, bias on): kernel ms, the plain int16
+    DP's ms (one call) and the bound (I16_OPS_PER_CELL over peak_ops);
+    returns {(B, L, kind): numbers}."""
+    from unicore_tpu_torch.ops import sw_cuda
+    from unicore_tpu_torch.ops.sw import sw_forward_plain
+
+    saa, s3d = ctx["saa"], ctx["s3d"]
+    log(f"[phase 3g] B L mode | int16 ms, float32 ms | int16 plain ms | int16 bound ms (ops at "
+        f"{ctx['peak_ops'] / 1e12:.2f} Tops/s: float on the FP32 lanes, int16 packed two to an INT32 "
+        f"lane, bytes) | share")
+    timing = {}
+    for B, L, go, ge in I16_SHAPES:
+        args, qc = sw_inputs(ctx["rng"], B, L, "on", ctx["saa_np"], ctx["s3d_np"], ctx["dev"])
+        for kind, kw in TIMED_MODES.items():
+            run = lambda **d: sw_cuda.sw_forward_cuda(*args, saa, s3d, go=go, ge=ge, qc=qc, **kw, **d)  # noqa: E731
+            ms = time_cuda(lambda: run(dp_dtype="i16"), reps)
+            f32_ms = time_cuda(run, reps)
+            plain_ms = once_ms(lambda: sw_forward_plain(*args, saa, s3d, go=go, ge=ge, qc=qc,
+                                                        dp_dtype="i16", **kw))
+            ops_ms = cells_of(args) * (I16_OPS_PER_CELL[kind] + 1) / ctx["peak_ops"] * 1e3
+            bytes_ms = bytes_of(args, qc) / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            timing[(B, L, kind)] = dict(ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                        bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+            log(f"  {B:4d} {L:5d} {kind:8s} | {ms:8.4f} {f32_ms:8.4f} | {plain_ms:9.2f} | "
+                f"{bound_ms:.4f} ({ops_ms:.4f}, {bytes_ms:.5f}) | {100 * bound_ms / ms:.1f} %")
+    return timing
+
+
+def start_probe(work, cores):
+    """Start scripts/torch_probe_i16.py (its builds and launches) in a
+    process of its own on `cores`; finish_probe reads it."""
+    out = os.path.join(work, "probe_i16.json")
+    proc = subprocess.Popen([sys.executable, os.path.join(ROOT, "scripts", "torch_probe_i16.py"),
+                             "--json", out], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            preexec_fn=lambda: os.sched_setaffinity(0, cores))
+    return proc, out
+
+
+def finish_probe(started):
+    """The probe's JSON-line row numbers; fails unless every probe built,
+    ran and matched numpy."""
+    proc, out = started
+    text, _ = proc.communicate(timeout=600)
+    for line in text.strip().splitlines():
+        log(f"[probe] {line}")
+    check(proc.returncode == 0 and os.path.exists(out),
+          f"scripts/torch_probe_i16.py exited {proc.returncode}: not every int16 probe passed")
+    res = json.load(open(out))
+    rows = res["probes"]
+    check(res["passed"] == res["total"] == len(rows) and all(r["status"] == "OK" for r in rows),
+          f"int16 probes: {res['passed']}/{res['total']} passed")
+    return dict(ms=sum(r["ms"] for r in rows), plain_ms=sum(r["numpy_ms"] for r in rows),
+                bound_ms=sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3,
+                max_abs_err=float(max(r["max_abs_err"] for r in rows)), n=len(rows))
 
 
 def device_busy_ms(fn, by_name=False):
@@ -1312,11 +1496,11 @@ def phase_nw(ctx):
 def dirbits_times(ctx, kind, d, plain, kernel, gaps, reps=20, cpu=True):
     """Times of one direction-bit dispatch on the card's inputs `d`:
     the kernel (CUDA events over `reps` launches after a warm-up), the
-    plain version (over 3), the plain version's device-busy time inside
-    one profiled dispatch, with `cpu` the CPU's plain time, and the
-    kernel's bound."""
+    plain version (one call; the checks ran its ops), the plain version's
+    device-busy time inside one profiled dispatch, with `cpu` the CPU's
+    plain time, and the kernel's bound."""
     k_ms = time_cuda(lambda: kernel(*d, *gaps), reps)
-    ms = time_cuda(lambda: plain(*d, *gaps), 3)
+    ms = once_ms(lambda: plain(*d, *gaps))
     busy_ms, wall_ms = device_busy_ms(lambda: plain(*d, *gaps))
     cpu_ms = None
     if cpu:
@@ -1606,8 +1790,8 @@ def phase_phylo(ctx):
         k = PHYLO["cpu_batch"]
         ll_batch = (cpu.loglik_batch(cb[:k], bb[:k]), gpu.loglik_batch(cb[:k], bb[:k]))
         err["loglik_batch"] = _rel_err(*ll_batch)
-        err["site_loglik_batch"] = _site_err(cpu.site_loglik_batch(cb[:16], bb[:16]),
-                                             gpu.site_loglik_batch(cb[:16], bb[:16]))
+        err["site_loglik_batch"] = _site_err(cpu.site_loglik_batch(cb[:k], bb[:k]),
+                                             gpu.site_loglik_batch(cb[:k], bb[:k]))
         moves = ts.nni_moves_arrays(c, n)
         err["loglik_nni_moves"] = _rel_err(cpu.loglik_nni_moves(c, b, moves), gpu.loglik_nni_moves(c, b, moves))
         nb_c, ll_c = cpu.optimize_blens(c, b, steps=PHYLO["steps"])
@@ -1782,7 +1966,8 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
         f"supermatrix {n_species} x {width}, {n_parts} partitions")
     log(f"  kernel launches {launches}; cluster purity {purity:.4f} over {n_clusters} clusters "
         f"(floor {PURITY_FLOOR})")
-    check(all(launches[k] > 0 for k in launches), f"the main path did not launch every kernel mode: {launches}")
+    check(all(launches[k] > 0 for k in ("gapped", "ungapped", "banded.gapped", "banded.ungapped")),
+          f"the main path did not launch every kernel mode: {launches}")
     check_banded_route(c, launches, "phase 4")
     check(purity >= PURITY_FLOOR, f"cluster purity {purity:.4f} < {PURITY_FLOOR}")
     check(t["msa.dispatches"] > 0, "the tree stage ran no NW forward")
@@ -1797,8 +1982,10 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
 
 
 def kernel_launches(counters):
-    """{mode: launches} of both kernels in a CLI run's counters."""
-    out = {k: int(counters.get(f"kernel.sw.{k}.launches", 0)) for k in ("gapped", "ungapped")}
+    """{mode: launches} of both kernels in a CLI run's counters, the SW
+    kernel's int16 instance ("gapped_i16", "ungapped_i16") among them."""
+    out = {k: int(counters.get(f"kernel.sw.{k}.launches", 0))
+           for k in ("gapped", "ungapped", "gapped_i16", "ungapped_i16")}
     out.update({f"banded.{k}": int(counters.get(f"kernel.banded.{k}.launches", 0)) for k in ("gapped", "ungapped")})
     return out
 
@@ -2018,7 +2205,7 @@ def cascade_step(db_path, tsv, threshold):
     os.makedirs(os.path.dirname(tsv), exist_ok=True)
     write_cluster_tsv(tsv, clusters, db.names)
     counters = dict(profiling.get_counters(), **{f"kernel.sw.{k}.launches": v
-                                                 for k, v in sw_cuda.LAUNCHES.items()},
+                                                 for k, v in {**sw_cuda.LAUNCHES, **sw_cuda.I16_LAUNCHES}.items()},
                     **{f"kernel.banded.{k}.launches": v for k, v in banded_cuda.LAUNCHES.items()},
                     **{f"kernel.dirbits.{k}.launches": v for k, v in dirbits_cuda.LAUNCHES.items()})
     if os.environ.get("UNICORE_TPU_TORCH_COUNTERS"):
@@ -2183,10 +2370,13 @@ def phase_cascade(ctx, work):
 
 
 def phase_cascade_and_config(ctx, work):
-    """6a, then 6e (the side thread beside phase 5's CUDA run)."""
+    """6a, then 6e, then 2d (the side thread beside phase 5's CUDA run);
+    returns 2d's errors."""
     phase_cascade(ctx, work)
     with span("phase 6e"):
         phase_config(ctx, work)
+    with span("phase 2d"):
+        return phase_i16_exact(ctx)
 
 
 def phase_config(ctx, work):
@@ -2422,8 +2612,8 @@ def phase_prostt5(ctx, work):
     """Phase 8a: `createdb` with a ProstT5 model directory at ProtT5-XL's
     full width on the card, through the CLI (a subprocess, so its load
     and its peak memory are its own): a synthetic 24-layer checkpoint
-    (write_prostt5_checkpoint) and phase 4's 20 proteomes plus one
-    5,000-residue protein (the windowed path).  Every 3Di string has its
+    (write_prostt5_checkpoint) and PROSTT5_SPECIES proteomes of phase 4's
+    seed plus one 5,000-residue protein (the windowed path).  Every 3Di string has its
     protein's length and only 3Di letters.  Then, in process, full batches
     at PROSTT5_BUCKETS: ms per batch of encoder_forward, cnn_head and the
     encoder and head (CUDA events; predict_3di_codes adds an argmax),
@@ -2438,7 +2628,7 @@ def phase_prostt5(ctx, work):
     ckpt = os.path.join(work, "prostt5")
     write_s = write_prostt5_checkpoint(ckpt, P.T5Config().n_layers, PROSTT5_SEED)
     in_dir = os.path.join(work, "prostt5_in")
-    synthetic.write_proteomes(in_dir, N_SPECIES, PER_SPECIES, seed=7)
+    synthetic.write_proteomes(in_dir, PROSTT5_SPECIES, PER_SPECIES, seed=7)
     with open(os.path.join(in_dir, "long.fa"), "w") as f:
         f.write(">long_protein\n" + _random_aa(np.random.RandomState(8), LONG_PROTEIN) + "\n")
     want = set()
@@ -3542,13 +3732,16 @@ def phase_crosscheck(ctx, work, small, cpu_run, t0):
 
 
 def checks_beside_cpu_run(work):
-    """Phase 1, the checks of phases 2, 2b, 2c, 3b, 3c and 3d, then 6a and 6e (in
-    a thread of their own) beside phase 5's CUDA run (with 6b, 6d, 7b and
-    7c), on two cores, while phase 5's CPU run (a cross-check, timed
-    by nothing) goes on on the others from the start.  Returns the
-    context, phase 2's errors and the inputs of the timed phases."""
+    """Phase 1, the checks of phases 2, 2b, 2c, 3b, 3c and 3d, then 6a, 6e
+    and 2d (in a thread of their own) beside phase 5's CUDA run (with 6b,
+    6d, 7b and 7c), on two cores, while phase 5's CPU run (a cross-check,
+    timed by nothing) goes on on the others from the start, and the int16
+    probe after it, from 6a on.  Returns the context, phases 2-2d's
+    errors and the inputs of the timed phases (the probe's numbers among
+    them)."""
     fg, bg = split_cores()
     every_core = os.sched_getaffinity(0)
+    probe = None
     with ThreadPoolExecutor(1) as pool:
         t5 = time.perf_counter()
         small, cpu_run = start_crosscheck(work, pool, bg)
@@ -3556,6 +3749,7 @@ def checks_beside_cpu_run(work):
         try:
             with span("phase 1"):
                 ctx = phase_env()
+            inputs = {}
             log(f"[phase 5] CPU run started on cores {sorted(bg)}; phases 1-3d's checks and phase 5 on CUDA "
                 f"run on cores {sorted(fg)}")
             with span("phase 2"):
@@ -3565,20 +3759,27 @@ def checks_beside_cpu_run(work):
             with span("phase 2c"):
                 max_err.update(phase_dirbits_exact(ctx))
             with span("phase 3b, checks"):
-                inputs = dict(nw=phase_nw(ctx))
+                inputs["nw"] = phase_nw(ctx)
             with span("phase 3c, checks"):
                 inputs["phylo"] = phase_phylo(ctx)
             with span("phase 3d, checks"):
                 inputs["sw_bits"] = phase_sw_bits(ctx)
             # 6a in process in a thread of its own, beside 6e and phase 5's
             # CUDA run (subprocesses): the card's two cores are mostly
-            # waiting on launches, and the window is set by the slower side
+            # waiting on launches, and the window is set by the slower side;
+            # the int16 probe on the cores of phase 5's CPU run, which has
+            # (nearly) ended
+            probe = start_probe(work, bg)
             with ThreadPoolExecutor(1) as side:
                 cascade = side.submit(phase_cascade_and_config, ctx, work)
                 phase_crosscheck(ctx, work, small, cpu_run, t5)
-                cascade.result()
+                max_err.update(cascade.result())
+            with span("int16 probe"):
+                inputs["probe"] = finish_probe(probe)
         except BaseException:
             stop_cli_runs()  # or the pool would wait for the CPU run
+            if probe is not None and probe[0].poll() is None:
+                probe[0].kill()
             raise
         finally:
             os.sched_setaffinity(0, every_core)
@@ -3599,7 +3800,7 @@ def main() -> int:
     try:
         ctx, max_err, inputs = checks_beside_cpu_run(work)
         # from here on nothing runs beside the timed phases
-        log(f"[{clock():.1f} s] phases 3, 3b, 3c, 3d, 3e and 3f, timed ({ctx['smi']})")
+        log(f"[{clock():.1f} s] phases 3 and 3b-3g, timed ({ctx['smi']})")
         with span("phase 3, times"):
             timing = phase_times(ctx)
         with span("phase 3b, times"):
@@ -3612,6 +3813,8 @@ def main() -> int:
             banded_timing = phase_banded_times(ctx)
         with span("phase 3f, times"):
             phase_dirbits_sweep(ctx)
+        with span("phase 3g, times"):
+            i16_timing = phase_i16_times(ctx)
         with span("phase 4"):
             launches, inference = phase_slice(work)
         with span("phase 7a"):
@@ -3667,6 +3870,26 @@ def main() -> int:
             "ms": t["kernel_ms"], "plain_ms": t["ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         })
+    for kind in ("gapped", "ungapped"):
+        t = i16_timing[(*I16_TIMED, kind)]
+        kernels.append({
+            "name": f"sw_forward_i16_{kind}", "route": "cuda",
+            "source": "unicore_tpu_torch/csrc/sw.cu",
+            "replaces": "unicore_tpu/ops/sw.py:361",
+            "launches": launches[f"{kind}_i16"] + search_launches[f"{kind}_i16"],
+            "max_abs_err": max_err[f"{kind}_i16"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+        })
+    probe = inputs["probe"]
+    kernels.append({
+        "name": "probe_i16", "route": "cuda",
+        "source": "unicore_tpu_torch/csrc/probe_i16.cu",
+        "replaces": "scripts/probe_i16.py:44",
+        "launches": 0, "max_abs_err": probe["max_abs_err"],
+        "ms": probe["ms"], "plain_ms": probe["plain_ms"], "bound_ms": probe["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+    })
     kernels.append({
         "name": "sw_forward_sharded", "route": "cuda",
         "source": "unicore_tpu_torch/csrc/sw.cu",

@@ -31,6 +31,10 @@ assert {"unicore_tpu_torch.align.cascade", "unicore_tpu_torch.phylo.genebatch",
         "unicore_tpu_torch.native.build", "unicore_tpu_torch.graft_entry"} <= set(names)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
+spec = importlib.util.spec_from_file_location("torch_probe_i16", "scripts/torch_probe_i16.py")
+probe = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(probe)
+probe.missing()
 bad = sorted(n for n, m in sys.modules.items() if m is not None
              and (n in ("jax", "unicore_tpu") or n.startswith(("jax.", "unicore_tpu."))))
 assert not bad, bad

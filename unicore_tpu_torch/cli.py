@@ -337,7 +337,8 @@ def _dump_counters() -> None:
     if path:
         from unicore_tpu_torch.ops import banded_cuda, dirbits_cuda, sw_cuda
         from unicore_tpu_torch.runtime import profiling
-        profiling.dump(path, {**{f"kernel.sw.{k}.launches": v for k, v in sw_cuda.LAUNCHES.items()},
+        profiling.dump(path, {**{f"kernel.sw.{k}.launches": v
+                                 for k, v in {**sw_cuda.LAUNCHES, **sw_cuda.I16_LAUNCHES}.items()},
                               **{f"kernel.banded.{k}.launches": v
                                  for k, v in banded_cuda.LAUNCHES.items()},
                               **{f"kernel.dirbits.{k}.launches": v

@@ -67,7 +67,37 @@
 // rounding can lift an F or E above the H it comes from.  Elsewhere it
 // runs all Lq rows, as the plain version does.  Columns in [tlen, Lt)
 // score NEG but carry E and F, as in the plain version.
+//
+// The int16 instance (sw_forward_i16_launch; the DpI16 policy below)
+// replaces the same kernel's dp_dtype="i16" mode, and is bit-identical to
+// unicore_tpu_torch/ops/sw.py::sw_forward_i16 on build_scores_i16's
+// scores.  It is the same kernel on another number type: H, F, E and the
+// per-column best are int16 values held sign-extended in 32-bit
+// registers, every add and subtract is truncated to int16 (JAX's int16
+// ops wrap), F starts at and the E window's outside is -20000, and the
+// gapped mode caps H at 30000.  A cell's score is gathered from two
+// (22, 22) float32 tables each block builds as ops/sw.py::i16_tables does
+// (the matrix with a pad row and column of -pad_v, times its weight in
+// float32, rounded to bfloat16), plus the bias rounded to bfloat16; the
+// float32 sum is rounded to bfloat16 and converted to int16 toward zero,
+// saturating, as XLA converts.  Columns past tlen take the pad code, and
+// so do rows past qlen, which are skipped where go >= 0 and ge >= 0 and
+// always in the ungapped mode: there every H of such a row is at most a
+// value of an earlier row at or left of its column (F and E lose go or
+// ge, a diagonal loses the pad sentinel, and no value wraps, H being in
+// [0, 30000] gapped and t <= 30000 + Lt*ge), so it cannot reach the best
+// before an earlier cell does.  The window's outside enters exactly
+// where the plain version's log steps bring it in: E[j] reads
+// max(window, -20000) for j < S.  What bounds it: the wrapper's contract
+// (ops/sw.py::i16_contract: Lt*ge + 30150 < 32767, Lq < 32768, integer
+// gaps and weights) and Lt <= MAX_LT; on the card, operations again:
+// the function needs 17 a gapped cell (8 ungapped), the float32 count
+// plus the score's bfloat16 rounding and conversion and the cap, which
+// packed int16x2 ops would issue at the FP32 lanes' rate; this instance
+// issues about 24 (11), a sign-extending wrap after each int16 add and
+// subtract among them, on the INT32 lanes at half that rate.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,6 +110,39 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_C = 16;
 constexpr int MAX_PAIR_WARPS = 8;  // Lt <= MAX_PAIR_WARPS * WARP * MAX_C
 constexpr int MAX_LT = MAX_PAIR_WARPS * WARP * MAX_C;
+constexpr int PAD = NA;           // int16 instance: code past a pair's length
+constexpr int NEG_I16 = -20000;   // int16 instance: F's start, the window's outside
+constexpr int H_CAP = 30000;      // int16 instance: the gapped mode's cap on H
+
+// The DP's number type and operations.  DpF32: the plain version's
+// float32.  DpI16: int16 values held sign-extended in an int, each add and
+// subtract truncated to int16.  none() lies below every value of the DP:
+// the max of an empty window.
+struct DpF32 {
+  using T = float;
+  static constexpr bool INT16 = false;
+  __device__ static T none() { return NEG; }
+  __device__ static T add(T a, T b) { return a + b; }
+  __device__ static T sub(T a, T b) { return a - b; }
+  __device__ static T mx(T a, T b) { return fmaxf(a, b); }
+};
+struct DpI16 {
+  using T = int;
+  static constexpr bool INT16 = true;
+  __device__ static T none() { return -32769; }
+  __device__ static T add(T a, T b) { return (int)(short)(a + b); }
+  __device__ static T sub(T a, T b) { return (int)(short)(a - b); }
+  __device__ static T mx(T a, T b) { return max(a, b); }
+};
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// float32 -> int16 toward zero, saturating (XLA's convert)
+__device__ __forceinline__ int to_i16(float x) {
+  return min(max(__float2int_rz(x), -32768), 32767);
+}
 
 struct Args {
   const int* qa;
@@ -98,15 +161,17 @@ struct Args {
   float* best;
   int* qend;
   int* tend;
+  int pad_v;  // int16 instance: the pad row and column's -value (ops/sw.py::i16_pad_value)
 };
 
 __device__ __forceinline__ void pair_sync(int id, int nthreads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+template <class D>
+__device__ __forceinline__ typename D::T warp_max(typename D::T v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = D::mx(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
@@ -119,57 +184,68 @@ constexpr int R_SUF = 3;   // suffix maxima, [c * 32 + lane]
 // Max of H0 + j*ge over columns [max(0, k), e_v) where e_v = v * W, the
 // part of a window that lies in warps before v (k < e_v); `pref` is the
 // max of the totals of warps 0 .. v-1.
-template <int C>
-__device__ __forceinline__ float incoming(const float* rp, int rec, int k, int v, float pref) {
+template <class D, int C>
+__device__ __forceinline__ typename D::T incoming(const typename D::T* rp, int rec, int k, int v,
+                                                  typename D::T pref) {
   constexpr int W = WARP * C;
   if (k <= 0) return pref;
   const int v2 = k / W, off = k - v2 * W;
-  float x = rp[v2 * rec + R_SUF + (off % C) * WARP + off / C];
-  for (int u = v2 + 1; u < v; ++u) x = fmaxf(x, rp[u * rec + R_TOT]);
+  typename D::T x = rp[v2 * rec + R_SUF + (off % C) * WARP + off / C];
+  for (int u = v2 + 1; u < v; ++u) x = D::mx(x, rp[u * rec + R_TOT]);
   return x;
 }
 
-// One log step of the windowed max inside the lane: P[c] = max(P[c], P[c-D]),
-// the columns left of the lane from lane - 1 (NEG left of the warp).
-template <int C, int D>
-__device__ __forceinline__ void lane_step(float (&P)[C], int lane) {
-  float from[D];
+// One log step of the windowed max inside the lane: P[c] = max(P[c], P[c-S]),
+// the columns left of the lane from lane - 1 (none() left of the warp).
+template <class D, int C, int S>
+__device__ __forceinline__ void lane_step(typename D::T (&P)[C], int lane) {
+  typename D::T from[S];
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
-    const float v = __shfl_up_sync(FULL, P[C - D + c], 1);
-    from[c] = lane == 0 ? NEG : v;
+  for (int c = 0; c < S; ++c) {
+    const typename D::T v = __shfl_up_sync(FULL, P[C - S + c], 1);
+    from[c] = lane == 0 ? D::none() : v;
   }
 #pragma unroll
-  for (int c = C - 1; c >= D; --c) P[c] = fmaxf(P[c], P[c - D]);
+  for (int c = C - 1; c >= S; --c) P[c] = D::mx(P[c], P[c - S]);
 #pragma unroll
-  for (int c = 0; c < D; ++c) P[c] = fmaxf(P[c], from[c]);
+  for (int c = 0; c < S; ++c) P[c] = D::mx(P[c], from[c]);
 }
 
 // One block per pair, G = blockDim.x / 32 warps (MULTI: G > 1).  LANES:
 // the gap window spans 2 to 16 lanes (C < S < 32*C, every C at the
 // engine's window of 64), taken van Herk/Gil-Werman style; any other span
-// takes the plain version's log steps.
-template <int C, bool UNGAPPED, bool BIAS, bool MULTI, bool LANES>
+// takes the plain version's log steps.  D: DpF32 or DpI16.
+template <class D, int C, bool UNGAPPED, bool BIAS, bool MULTI, bool LANES>
 __global__ void __launch_bounds__(MAX_PAIR_WARPS * WARP) sw_forward_kernel(Args a) {
+  using T = typename D::T;
+  constexpr bool I16 = D::INT16;
+  constexpr int NT = I16 ? NA + 1 : NA;  // the matrices' rows (int16: a pad row)
   constexpr int W = WARP * C;  // columns of one warp
   extern __shared__ float smem[];
-  __shared__ float red_f[MAX_PAIR_WARPS];
+  __shared__ T red_f[MAX_PAIR_WARPS];
   __shared__ unsigned long long red_k[MAX_PAIR_WARPS];
 
   const int S = a.S, Lq = a.Lq, Lt = a.Lt;
   const int G = MULTI ? a.G : 1;
-  const float go = a.go, ge = a.ge;
+  const T go = (T)a.go, ge = (T)a.ge;
   const int lane = threadIdx.x & (WARP - 1);
   const int w = MULTI ? (int)(threadIdx.x / WARP) : 0;
   const int b = blockIdx.x;
   const int rec = UNGAPPED ? 1 : R_SUF + W;
   float* mat_aa = smem;               // w_aa * saa
-  float* mat_3d = mat_aa + NA * NA;   // w_3di * s3d
-  float* xbuf = mat_3d + NA * NA;     // [parity][warp] records (MULTI)
+  float* mat_3d = mat_aa + NT * NT;   // w_3di * s3d
+  T* xbuf = reinterpret_cast<T*>(mat_3d + NT * NT);  // [parity][warp] records (MULTI)
 
-  for (int k = threadIdx.x; k < NA * NA; k += blockDim.x) {
-    mat_aa[k] = a.w_aa * a.saa[k];
-    mat_3d[k] = a.w_3di * a.s3d[k];
+  for (int k = threadIdx.x; k < NT * NT; k += blockDim.x) {
+    if constexpr (I16) {  // a pad row and column, weighted and rounded to bfloat16
+      const int r = k / NT, c = k % NT;
+      const bool pad = r == PAD || c == PAD;
+      mat_aa[k] = bf16_round((pad ? -(float)a.pad_v : a.saa[r * NA + c]) * a.w_aa);
+      mat_3d[k] = bf16_round((pad ? -(float)a.pad_v : a.s3d[r * NA + c]) * a.w_3di);
+    } else {
+      mat_aa[k] = a.w_aa * a.saa[k];
+      mat_3d[k] = a.w_3di * a.s3d[k];
+    }
   }
   __syncthreads();
 
@@ -181,119 +257,159 @@ __global__ void __launch_bounds__(MAX_PAIR_WARPS * WARP) sw_forward_kernel(Args 
 
   // exact_dp (gapped): every value on the non-negative side of the DP is
   // an exact integer below 2^24 (see the note at the top), so rows past
-  // qlen can be skipped
-  bool integral = true;
-  float amax = 0.f, smax = 0.f;
-  for (int k = lane; k < NA * NA; k += WARP) {
-    const float x = mat_aa[k], y = mat_3d[k];
-    integral = integral && x == rintf(x) && y == rintf(y);
-    amax = fmaxf(amax, fabsf(x));
-    smax = fmaxf(smax, fabsf(y));
-  }
-  double qmax = 0.0;
-  if (BIAS)
-    for (int r = lane; r < ql; r += WARP) qmax = fmax(qmax, fabs((double)qc_b[r]));
+  // qlen can be skipped.  The int16 instance skips them where its note
+  // says.
+  int nrows = Lq;
+  if constexpr (I16) {
+    nrows = UNGAPPED || (go >= 0 && ge >= 0) ? ql : Lq;
+  } else {
+    bool integral = true;
+    float amax = 0.f, smax = 0.f;
+    for (int k = lane; k < NA * NA; k += WARP) {
+      const float x = mat_aa[k], y = mat_3d[k];
+      integral = integral && x == rintf(x) && y == rintf(y);
+      amax = fmaxf(amax, fabsf(x));
+      smax = fmaxf(smax, fabsf(y));
+    }
+    double qmax = 0.0;
+    if (BIAS)
+      for (int r = lane; r < ql; r += WARP) qmax = fmax(qmax, fabs((double)qc_b[r]));
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, o));
-    smax = fmaxf(smax, __shfl_xor_sync(FULL, smax, o));
-    qmax = fmax(qmax, __shfl_xor_sync(FULL, qmax, o));
+    for (int o = 16; o > 0; o >>= 1) {
+      amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, o));
+      smax = fmaxf(smax, __shfl_xor_sync(FULL, smax, o));
+      qmax = fmax(qmax, __shfl_xor_sync(FULL, qmax, o));
+    }
+    integral = __all_sync(FULL, integral);
+    const bool exact_dp = integral && go >= 0.f && ge >= 0.f && go == rintf(go) && ge == rintf(ge)
+                          && (double)ql * ((double)amax + (double)smax + qmax) + (double)Lt * ge
+                             + (double)go + (double)ge < 16777216.0;
+    // the ungapped mode skips rows past qlen always (see the note at the top)
+    nrows = UNGAPPED || exact_dp ? ql : Lq;
   }
-  integral = __all_sync(FULL, integral);
-  const bool exact_dp = integral && go >= 0.f && ge >= 0.f && go == rintf(go) && ge == rintf(ge)
-                        && (double)ql * ((double)amax + (double)smax + qmax) + (double)Lt * ge
-                           + (double)go + (double)ge < 16777216.0;
-  // the ungapped mode skips rows past qlen always (see the note at the top)
-  const int nrows = UNGAPPED || exact_dp ? ql : Lq;
 
   const int e_w = w * W;          // the warp's first column
   const int j0 = e_w + lane * C;  // the lane's first column
   const int vlim = tl - j0;       // columns c < vlim of the lane are < tlen
   // byte offsets of each column's entries in the two matrices: a gather is
-  // this plus the row's offset (masked columns hold code 0: in bounds)
+  // this plus the row's offset (masked columns hold code 0, int16: PAD)
+  constexpr int MASKED = I16 ? PAD : 0;
   int oa[C], os[C], br[C];
-  float h[C], f[C], bb[C], jge[C];
+  T h[C], f[C], bb[C], jge[C];
+  T eoff[C];  // int16: jge + (go - ge), E = Pexc - eoff
+  const T gmg = I16 ? D::sub(go, ge) : T(0);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int j = j0 + c;
     const bool valid = j < tl;
-    oa[c] = (valid ? a.ta[(size_t)b * Lt + j] : 0) * 4;
-    os[c] = (valid ? a.ts[(size_t)b * Lt + j] : 0) * 4 + NA * NA * 4;
-    h[c] = 0.f;
-    f[c] = NEG;
-    bb[c] = 0.f;
+    oa[c] = (valid ? a.ta[(size_t)b * Lt + j] : MASKED) * 4;
+    os[c] = (valid ? a.ts[(size_t)b * Lt + j] : MASKED) * 4 + NT * NT * 4;
+    h[c] = T(0);
+    f[c] = I16 ? T(NEG_I16) : T(NEG);
+    bb[c] = T(0);
     br[c] = 0;
-    jge[c] = (float)j * ge;
+    if constexpr (I16) {
+      jge[c] = (int)(short)(j * (int)ge);
+      eoff[c] = D::add(jge[c], gmg);
+    } else {
+      jge[c] = (float)j * ge;
+    }
   }
-  const float jge_edge = (float)(e_w - 1) * ge;
-  float edge_h = 0.f;  // H[i-1][e_w - 1]; 0 for the first row and column
+  T jge_edge;  // int16: the eoff of column e_w - 1
+  if constexpr (I16)
+    jge_edge = D::add((int)(short)((e_w - 1) * (int)ge), gmg);
+  else
+    jge_edge = (float)(e_w - 1) * ge;
+  T edge_h = T(0);  // H[i-1][e_w - 1]; 0 for the first row and column
   const char* sbase = reinterpret_cast<const char*>(smem);
 
   // Scores of row r: a gather at each column's byte offset plus the
   // row's (every gather is in bounds, so the loads issue together), the
   // bias in float32, NEG past tlen and past qlen (a select).  fix_big
-  // redoes a row whose |q| > 2^24 with the float64 add.
-  auto score = [&](int r, int ca_, int cs_, int q_, float (&out)[C]) {
-    const int ra = ca_ * (NA * 4), rs = cs_ * (NA * 4);
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      out[c] = *reinterpret_cast<const float*>(sbase + oa[c] + ra)
-               + *reinterpret_cast<const float*>(sbase + os[c] + rs);
-    if (BIAS) {
-      const float qf = (float)q_;
-#pragma unroll
-      for (int c = 0; c < C; ++c) out[c] = out[c] + qf;
-    }
-    const int vl = r < ql ? vlim : 0;
-#pragma unroll
-    for (int c = 0; c < C; ++c) out[c] = c < vl ? out[c] : NEG;
-  };
-  auto fix_big = [&](int r, int ca_, int cs_, int q_, float (&out)[C]) {
-    if (BIAS && (q_ < -(1 << 24) || q_ > (1 << 24))) {
-      const int ra = ca_ * (NA * 4), rs = cs_ * (NA * 4), vl = r < ql ? vlim : 0;
+  // redoes a row whose |q| > 2^24 with the float64 add.  int16: the pad
+  // codes mask, and the sum goes through bfloat16 to int16.
+  auto score = [&](int r, int ca_, int cs_, int q_, T (&out)[C]) {
+    const int ra = ca_ * (NT * 4), rs = cs_ * (NT * 4);
+    if constexpr (I16) {
+      const float qb = BIAS ? bf16_round((float)q_) : 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float x = *reinterpret_cast<const float*>(sbase + oa[c] + ra)
-                        + *reinterpret_cast<const float*>(sbase + os[c] + rs);
-        out[c] = c < vl ? (float)((double)x + (double)q_) : NEG;
+        float x = *reinterpret_cast<const float*>(sbase + oa[c] + ra)
+                  + *reinterpret_cast<const float*>(sbase + os[c] + rs);
+        if (BIAS) x = x + qb;
+        out[c] = to_i16(bf16_round(x));
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        out[c] = *reinterpret_cast<const float*>(sbase + oa[c] + ra)
+                 + *reinterpret_cast<const float*>(sbase + os[c] + rs);
+      if (BIAS) {
+        const float qf = (float)q_;
+#pragma unroll
+        for (int c = 0; c < C; ++c) out[c] = out[c] + qf;
+      }
+      const int vl = r < ql ? vlim : 0;
+#pragma unroll
+      for (int c = 0; c < C; ++c) out[c] = c < vl ? out[c] : NEG;
+    }
+  };
+  auto fix_big = [&](int r, int ca_, int cs_, int q_, T (&out)[C]) {
+    if constexpr (!I16) {
+      if (BIAS && (q_ < -(1 << 24) || q_ > (1 << 24))) {
+        const int ra = ca_ * (NA * 4), rs = cs_ * (NA * 4), vl = r < ql ? vlim : 0;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float x = *reinterpret_cast<const float*>(sbase + oa[c] + ra)
+                          + *reinterpret_cast<const float*>(sbase + os[c] + rs);
+          out[c] = c < vl ? (float)((double)x + (double)q_) : NEG;
+        }
       }
     }
   };
-  // a row's codes (clamped into the query: rows past qlen are masked)
+  // a row's codes (clamped into the query: rows past qlen are masked;
+  // int16: they take the pad code and no bias)
   auto load = [&](int r, int& ca_, int& cs_, int& q_) {
-    r = max(0, min(r, ql - 1));
-    ca_ = qa_b[r];
-    cs_ = qs_b[r];
-    if (BIAS) q_ = qc_b[r];
+    if constexpr (I16) {
+      const bool v = r < ql;
+      ca_ = v ? qa_b[r] : PAD;
+      cs_ = v ? qs_b[r] : PAD;
+      if (BIAS) q_ = v ? qc_b[r] : 0;
+    } else {
+      r = max(0, min(r, ql - 1));
+      ca_ = qa_b[r];
+      cs_ = qs_b[r];
+      if (BIAS) q_ = qc_b[r];
+    }
   };
   // the codes run two rows ahead of the DP and the scores one, so neither a
   // global load nor a gather waits between two rows
   int ca0 = 0, cs0 = 0, q0 = 0, ca1 = 0, cs1 = 0, q1 = 0;
   load(0, ca0, cs0, q0);
   load(1, ca1, cs1, q1);
-  float sc[C];
+  T sc[C];
   score(0, ca0, cs0, q0, sc);
   fix_big(0, ca0, cs0, q0, sc);
 
   for (int i = 0; i < nrows; ++i) {
-    float sn[C];
+    T sn[C];
     const int can = ca1, csn = cs1, qn = q1;
     score(i + 1, can, csn, qn, sn);
     load(i + 2, ca1, cs1, q1);
-    float hl = __shfl_up_sync(FULL, h[C - 1], 1);
+    T hl = __shfl_up_sync(FULL, h[C - 1], 1);
     if (lane == 0) hl = edge_h;
 
     if (UNGAPPED) {
 #pragma unroll
       for (int c = C - 1; c >= 0; --c) {
-        const float H = fmaxf(0.f, (c ? h[c - 1] : hl) + sc[c]);
+        const T H = D::mx(T(0), D::add(c ? h[c - 1] : hl, sc[c]));
         const bool up = H > bb[c];
         bb[c] = up ? H : bb[c];
         br[c] = up ? i : br[c];
         h[c] = H;
       }
       if (MULTI) {
-        float* r = xbuf + ((i & 1) * G + w) * rec;
+        T* r = xbuf + ((i & 1) * G + w) * rec;
         if (lane == WARP - 1) r[0] = h[C - 1];
         pair_sync(1, WARP * G);
         if (w > 0) edge_h = xbuf[((i & 1) * G + w - 1) * rec];
@@ -304,21 +420,21 @@ __global__ void __launch_bounds__(MAX_PAIR_WARPS * WARP) sw_forward_kernel(Args 
       continue;
     }
 
-    float H0[C], P[C];
+    T H0[C], P[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float Fv = fmaxf(h[c] - go, f[c] - ge);
+      const T Fv = D::mx(D::sub(h[c], go), D::sub(f[c], ge));
       f[c] = Fv;
-      H0[c] = fmaxf(0.f, fmaxf((c ? h[c - 1] : hl) + sc[c], Fv));
-      P[c] = H0[c] + jge[c];
+      H0[c] = D::mx(T(0), D::mx(D::add(c ? h[c - 1] : hl, sc[c]), Fv));
+      P[c] = D::add(H0[c], jge[c]);
     }
 
     // suffix maxima of H0 + j*ge inside the lane: for the lane scan below
     // and for the warps to the right
-    float suf[C];
+    T suf[C];
     suf[C - 1] = P[C - 1];
 #pragma unroll
-    for (int c = C - 2; c >= 0; --c) suf[c] = fmaxf(suf[c + 1], P[c]);
+    for (int c = C - 2; c >= 0; --c) suf[c] = D::mx(suf[c + 1], P[c]);
 
     // in-warp windowed inclusive prefix max over [max(e_w, j - S + 1), j]
     if (LANES) {
@@ -326,61 +442,61 @@ __global__ void __launch_bounds__(MAX_PAIR_WARPS * WARP) sw_forward_kernel(Args 
       // lanes t-m+1 .. t-1, and the suffix of lane t-m from column c+1
       const int m = S / C;
 #pragma unroll
-      for (int c = 1; c < C; ++c) P[c] = fmaxf(P[c - 1], P[c]);
-      float win = P[C - 1];  // becomes the max of the totals of lanes t-m/2+1 .. t
+      for (int c = 1; c < C; ++c) P[c] = D::mx(P[c - 1], P[c]);
+      T win = P[C - 1];  // becomes the max of the totals of lanes t-m/2+1 .. t
 #pragma unroll
       for (int k = 1; k < WARP / 4; k <<= 1) {  // m <= 16
-        const float o = __shfl_up_sync(FULL, win, k);
-        if (k < (m >> 1) && lane >= k) win = fmaxf(win, o);
+        const T o = __shfl_up_sync(FULL, win, k);
+        if (k < (m >> 1) && lane >= k) win = D::mx(win, o);
       }
-      const float m1 = __shfl_up_sync(FULL, win, 1);
-      const float m2 = __shfl_up_sync(FULL, win, m >> 1);
-      float mid = lane >= 1 ? m1 : NEG;
-      if (lane >= (m >> 1)) mid = fmaxf(mid, m2);
+      const T m1 = __shfl_up_sync(FULL, win, 1);
+      const T m2 = __shfl_up_sync(FULL, win, m >> 1);
+      T mid = lane >= 1 ? m1 : D::none();
+      if (lane >= (m >> 1)) mid = D::mx(mid, m2);
 #pragma unroll
       for (int c = 0; c < C - 1; ++c) {
-        const float x = __shfl_up_sync(FULL, suf[c + 1], m);
-        P[c] = fmaxf(fmaxf(P[c], mid), lane >= m ? x : NEG);
+        const T x = __shfl_up_sync(FULL, suf[c + 1], m);
+        P[c] = D::mx(D::mx(P[c], mid), lane >= m ? x : D::none());
       }
-      P[C - 1] = fmaxf(P[C - 1], mid);
+      P[C - 1] = D::mx(P[C - 1], mid);
     } else {
       // the plain version's log steps d = 1, 2, 4, ... < S: inside the lane
       // below C columns, then by d whole lanes (d*C columns)
-      if (S > 1) lane_step<C, 1>(P, lane);
-      if (S > 2) lane_step<C, 2>(P, lane);
-      if (C > 4 && S > 4) lane_step<C, (C > 4 ? 4 : 1)>(P, lane);
-      if (C > 8 && S > 8) lane_step<C, (C > 8 ? 8 : 1)>(P, lane);
+      if (S > 1) lane_step<D, C, 1>(P, lane);
+      if (S > 2) lane_step<D, C, 2>(P, lane);
+      if (C > 4 && S > 4) lane_step<D, C, (C > 4 ? 4 : 1)>(P, lane);
+      if (C > 8 && S > 8) lane_step<D, C, (C > 8 ? 8 : 1)>(P, lane);
       for (int d = 1; d * C < S && d < WARP; d <<= 1) {
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const float v = __shfl_up_sync(FULL, P[c], d);
-          if (lane >= d) P[c] = fmaxf(P[c], v);
+          const T v = __shfl_up_sync(FULL, P[c], d);
+          if (lane >= d) P[c] = D::mx(P[c], v);
         }
       }
     }
 
-    float* rp = xbuf + (i & 1) * G * rec;  // this row's records
+    T* rp = xbuf + (i & 1) * G * rec;  // this row's records
     if (MULTI) {
-      float* r = rp + w * rec;
+      T* r = rp + w * rec;
       if (!LANES && S >= W) {  // windows shorter than a warp never read totals
-        const float tot = warp_max(suf[0]);
+        const T tot = warp_max<D>(suf[0]);
         if (lane == 0) r[R_TOT] = tot;
       }
       if (lane == WARP - 1) { r[R_H0] = H0[C - 1]; r[R_PW] = P[C - 2]; }
       if (w < G - 1 && e_w + S < Lt) {
         // suffix maxima to the warp's end, where a later warp's window
         // (k = j - S for its columns j < Lt) starts
-        float y = suf[0];
+        T y = suf[0];
 #pragma unroll
         for (int k = 1; k < WARP; k <<= 1) {
-          const float o = __shfl_down_sync(FULL, y, k);
-          if (lane + k < WARP) y = fmaxf(y, o);
+          const T o = __shfl_down_sync(FULL, y, k);
+          if (lane + k < WARP) y = D::mx(y, o);
         }
-        float ex = __shfl_down_sync(FULL, y, 1);
-        if (lane == WARP - 1) ex = NEG;
+        T ex = __shfl_down_sync(FULL, y, 1);
+        if (lane == WARP - 1) ex = D::none();
         if (j0 + C - 1 + S >= e_w + W && j0 + S < Lt) {
 #pragma unroll
-          for (int c = 0; c < C; ++c) r[R_SUF + c * WARP + lane] = fmaxf(suf[c], ex);
+          for (int c = 0; c < C; ++c) r[R_SUF + c * WARP + lane] = D::mx(suf[c], ex);
         }
       }
       pair_sync(1, WARP * G);
@@ -388,10 +504,10 @@ __global__ void __launch_bounds__(MAX_PAIR_WARPS * WARP) sw_forward_kernel(Args 
 
     // exclusive prefix: Pexc[j] = P[j - 1], with the part of the window
     // that lies in earlier warps
-    float pe[C];
+    T pe[C];
     {
-      const float up = __shfl_up_sync(FULL, P[C - 1], 1);
-      pe[0] = lane == 0 ? NEG : up;
+      const T up = __shfl_up_sync(FULL, P[C - 1], 1);
+      pe[0] = lane == 0 ? D::none() : up;
 #pragma unroll
       for (int c = 1; c < C; ++c) pe[c] = P[c - 1];
     }
@@ -402,30 +518,38 @@ __global__ void __launch_bounds__(MAX_PAIR_WARPS * WARP) sw_forward_kernel(Args 
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           const int k = j0 + c - S;
-          if (k < e_w) pe[c] = fmaxf(pe[c], incoming<C>(rp, rec, k, w, NEG));
+          if (k < e_w) pe[c] = D::mx(pe[c], incoming<D, C>(rp, rec, k, w, D::none()));
         }
       } else {
         // S is a multiple of C: the lane's columns k = j0 - S + c are the
         // C columns of one lane of an earlier warp (or all left of column 0)
         const int k0 = j0 - S;
         const int v2 = k0 < 0 ? -1 : k0 / W;
-        float t = NEG;  // totals of the warps between
-        for (int v = v2 + 1; v < w; ++v) t = fmaxf(t, rp[v * rec + R_TOT]);
+        T t = D::none();  // totals of the warps between
+        for (int v = v2 + 1; v < w; ++v) t = D::mx(t, rp[v * rec + R_TOT]);
         if (k0 < 0) {
 #pragma unroll
-          for (int c = 0; c < C; ++c) pe[c] = fmaxf(pe[c], t);
+          for (int c = 0; c < C; ++c) pe[c] = D::mx(pe[c], t);
         } else {
-          const float* src = rp + v2 * rec + R_SUF + (k0 - v2 * W) / C;
+          const T* src = rp + v2 * rec + R_SUF + (k0 - v2 * W) / C;
 #pragma unroll
-          for (int c = 0; c < C; ++c) pe[c] = fmaxf(pe[c], fmaxf(src[c * WARP], t));
+          for (int c = 0; c < C; ++c) pe[c] = D::mx(pe[c], D::mx(src[c * WARP], t));
         }
       }
     }
 
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float E = pe[c] - go + ge - jge[c];
-      const float H = fmaxf(H0[c], E);
+      T E, H;
+      if constexpr (I16) {
+        // the window reaches left of column 0, where the log steps fill -20000
+        const T p = j0 + c < S ? max(pe[c], NEG_I16) : pe[c];
+        E = D::sub(p, eoff[c]);
+        H = min(max(H0[c], E), H_CAP);
+      } else {
+        E = pe[c] - go + ge - jge[c];
+        H = fmaxf(H0[c], E);
+      }
       const bool up = H > bb[c];
       bb[c] = up ? H : bb[c];
       br[c] = up ? i : br[c];
@@ -435,16 +559,22 @@ __global__ void __launch_bounds__(MAX_PAIR_WARPS * WARP) sw_forward_kernel(Args 
     if (MULTI && w > 0) {
       // H[i][e_w - 1], the next row's diagonal at the warp's left edge,
       // recomputed from what warp w-1 published (same operations)
-      const float* rq = rp + (w - 1) * rec;
-      float in = NEG;
+      const T* rq = rp + (w - 1) * rec;
+      T in = D::none();
       const int k = e_w - 1 - S;
       if (!LANES && k < e_w - W) {  // the window passes warp w-1 (S >= W)
-        float pref = NEG;
-        for (int v = 0; v < w - 1; ++v) pref = fmaxf(pref, rp[v * rec + R_TOT]);
-        in = incoming<C>(rp, rec, k, w - 1, pref);
+        T pref = D::none();
+        for (int v = 0; v < w - 1; ++v) pref = D::mx(pref, rp[v * rec + R_TOT]);
+        in = incoming<D, C>(rp, rec, k, w - 1, pref);
       }
-      const float E = fmaxf(rq[R_PW], in) - go + ge - jge_edge;
-      edge_h = fmaxf(rq[R_H0], E);
+      if constexpr (I16) {
+        T p = max(rq[R_PW], in);
+        if (e_w - 1 < S) p = max(p, NEG_I16);
+        edge_h = min(max(rq[R_H0], D::sub(p, jge_edge)), H_CAP);
+      } else {
+        const float E = fmaxf(rq[R_PW], in) - go + ge - jge_edge;
+        edge_h = fmaxf(rq[R_H0], E);
+      }
     }
     fix_big(i + 1, can, csn, qn, sn);
 #pragma unroll
@@ -453,15 +583,15 @@ __global__ void __launch_bounds__(MAX_PAIR_WARPS * WARP) sw_forward_kernel(Args 
 
   // best over the per-column bests, then the lowest (row, col) among the
   // cells holding it: row-major ties, as in the plain version
-  float m = NEG;
+  T m = D::none();
 #pragma unroll
   for (int c = 0; c < C; ++c)
-    if (j0 + c < Lt) m = fmaxf(m, bb[c]);
-  m = warp_max(m);
+    if (j0 + c < Lt) m = D::mx(m, bb[c]);
+  m = warp_max<D>(m);
   if (MULTI) {
     if (lane == 0) red_f[w] = m;
     pair_sync(1, WARP * G);
-    for (int v = 0; v < G; ++v) m = fmaxf(m, red_f[v]);
+    for (int v = 0; v < G; ++v) m = D::mx(m, red_f[v]);
   }
   unsigned long long key = ~0ull;
 #pragma unroll
@@ -483,20 +613,22 @@ __global__ void __launch_bounds__(MAX_PAIR_WARPS * WARP) sw_forward_kernel(Args 
     for (int v = 0; v < G; ++v) key = red_k[v] < key ? red_k[v] : key;
   }
   if (w == 0 && lane == 0) {
-    a.best[b] = m;
+    a.best[b] = (float)m;
     a.qend[b] = (int)(key >> 32);
     a.tend[b] = (int)(key & 0xffffffffu);
   }
 }
 
-template <int C, bool UNGAPPED, bool BIAS, bool MULTI>
+template <class D, int C, bool UNGAPPED, bool BIAS, bool MULTI>
 cudaError_t launch(Args a, cudaStream_t stream) {
+  constexpr int NT = D::INT16 ? NA + 1 : NA;
+  static_assert(sizeof(typename D::T) == sizeof(float), "records share the float buffer");
   a.G = (a.Lt + WARP * C - 1) / (WARP * C);
   const int rec = UNGAPPED ? 1 : R_SUF + WARP * C;
-  const size_t smem = (2 * NA * NA + (MULTI ? (size_t)2 * a.G * rec : 0)) * sizeof(float);
-  auto kernel = sw_forward_kernel<C, UNGAPPED, BIAS, MULTI, false>;
+  const size_t smem = (2 * NT * NT + (MULTI ? (size_t)2 * a.G * rec : 0)) * sizeof(float);
+  auto kernel = sw_forward_kernel<D, C, UNGAPPED, BIAS, MULTI, false>;
   if constexpr (!UNGAPPED)
-    if (a.S > C && a.S < WARP * C) kernel = sw_forward_kernel<C, UNGAPPED, BIAS, MULTI, true>;
+    if (a.S > C && a.S < WARP * C) kernel = sw_forward_kernel<D, C, UNGAPPED, BIAS, MULTI, true>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -509,19 +641,19 @@ cudaError_t launch(Args a, cudaStream_t stream) {
 // Columns per lane (C) by target width and mode: the fastest of 4, 8 and
 // 16 at the main path's widths (PERF.md, scripts/torch_sw_bench.py).  A
 // pair takes ceil(Lt / (32*C)) warps; only the (C, multi-warp) pairs named
-// here are compiled.
-template <bool BIAS>
+// here are compiled.  The int16 instance takes the same table.
+template <class D, bool BIAS>
 cudaError_t dispatch(const Args& a, bool ungapped, cudaStream_t st) {
   if (ungapped) {
-    if (a.Lt <= 128) return launch<4, true, BIAS, false>(a, st);
-    if (a.Lt <= 256) return launch<4, true, BIAS, true>(a, st);
-    if (a.Lt <= 2048) return launch<8, true, BIAS, true>(a, st);
-    return launch<16, true, BIAS, true>(a, st);
+    if (a.Lt <= 128) return launch<D, 4, true, BIAS, false>(a, st);
+    if (a.Lt <= 256) return launch<D, 4, true, BIAS, true>(a, st);
+    if (a.Lt <= 2048) return launch<D, 8, true, BIAS, true>(a, st);
+    return launch<D, 16, true, BIAS, true>(a, st);
   }
-  if (a.Lt <= 128) return launch<4, false, BIAS, false>(a, st);
-  if (a.Lt <= 256) return launch<8, false, BIAS, false>(a, st);
-  if (a.Lt <= 512) return launch<16, false, BIAS, false>(a, st);
-  return launch<16, false, BIAS, true>(a, st);
+  if (a.Lt <= 128) return launch<D, 4, false, BIAS, false>(a, st);
+  if (a.Lt <= 256) return launch<D, 8, false, BIAS, false>(a, st);
+  if (a.Lt <= 512) return launch<D, 16, false, BIAS, false>(a, st);
+  return launch<D, 16, false, BIAS, true>(a, st);
 }
 
 }  // namespace
@@ -543,8 +675,29 @@ extern "C" int sw_forward_launch(
   const Args a{qa, qs, ta, ts, qlen, tlen, qc, saa, s3d, go, ge, w_aa, w_3di,
                B, Lq, Lt, S, 0, best, qend, tend};
   cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t e = qc != nullptr ? dispatch<true>(a, ungapped != 0, st)
-                                      : dispatch<false>(a, ungapped != 0, st);
+  const cudaError_t e = qc != nullptr ? dispatch<DpF32, true>(a, ungapped != 0, st)
+                                      : dispatch<DpF32, false>(a, ungapped != 0, st);
+  return (int)e;
+}
+
+// The int16 instance (dp_dtype="i16"): go and ge are integers, and pad_v
+// is ops/sw.py::i16_pad_value(w_aa, w_3di).  The wrapper has checked the
+// int16 contract (ops/sw.py::i16_contract).
+extern "C" int sw_forward_i16_launch(
+    const int* qa, const int* qs, const int* ta, const int* ts,
+    const int* qlen, const int* tlen, const int* qc,
+    const float* saa, const float* s3d, int go, int ge, float w_aa, float w_3di, int pad_v,
+    int B, int Lq, int Lt, int scan_limit, int ungapped,
+    float* best, int* qend, int* tend, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  if (Lq <= 0 || Lt <= 0 || Lt > MAX_LT) return (int)cudaErrorInvalidValue;
+  int S = 1;
+  while (S < scan_limit && S < Lt) S <<= 1;
+  const Args a{qa, qs, ta, ts, qlen, tlen, qc, saa, s3d, (float)go, (float)ge, w_aa, w_3di,
+               B, Lq, Lt, S, 0, best, qend, tend, pad_v};
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = qc != nullptr ? dispatch<DpI16, true>(a, ungapped != 0, st)
+                                      : dispatch<DpI16, false>(a, ungapped != 0, st);
   return (int)e;
 }
 

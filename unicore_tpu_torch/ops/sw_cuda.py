@@ -4,7 +4,9 @@
 and returns (best f32, qend i32, tend i32) per pair.  On CUDA tensors it
 launches the kernel, or raises; on CPU tensors it runs the plain version
 (`ops/sw.py::sw_forward_plain`).  There is no fallback from one to the
-other.
+other.  `dp_dtype="i16"` selects the kernel's int16 instance and the
+plain int16 DP (`ops/sw.py::sw_forward_i16`), after the int16 contract
+(`ops/sw.py::i16_contract`) is checked on either device.
 
 The kernel is compiled at first use by `nvcc` for sm_90a into a shared
 library with a plain C interface, loaded with ctypes, and cached under
@@ -18,7 +20,9 @@ toolkit; only the first launch needs one.
 
 `LAUNCHES` counts the launches per mode ("gapped", "ungapped"), so a run
 can show that its main path went through the kernel; `SHARDED_LAUNCHES`
-counts those of them made through `sw_forward_sharded`.
+counts those of them made through `sw_forward_sharded`, and
+`I16_LAUNCHES` those of the int16 instance ("gapped_i16",
+"ungapped_i16"), which the main path never takes.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from unicore_tpu_torch.ops.sw import (
-    GAP_EXTEND_INT, GAP_OPEN_INT, NA, W_3DI_INT, W_AA_INT, sw_forward_plain,
+    DP_DTYPES, GAP_EXTEND_INT, GAP_OPEN_INT, NA, W_3DI_INT, W_AA_INT, i16_contract, i16_pad_value,
+    sw_forward_plain,
 )
 from unicore_tpu_torch.parallel.mesh import gather, on_device, shard, shard_devices
 
@@ -52,6 +57,8 @@ MAX_LT = 4096  # sw.cu: MAX_PAIR_WARPS * 32 * MAX_C
 LAUNCHES: Dict[str, int] = {"gapped": 0, "ungapped": 0}
 # launches made through sw_forward_sharded (also counted in LAUNCHES)
 SHARDED_LAUNCHES: Dict[str, int] = {"gapped": 0, "ungapped": 0}
+# launches of the int16 instance (dp_dtype="i16"), counted apart from LAUNCHES
+I16_LAUNCHES: Dict[str, int] = {"gapped_i16": 0, "ungapped_i16": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -59,7 +66,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, SHARDED_LAUNCHES):
+    for counts in (LAUNCHES, SHARDED_LAUNCHES, I16_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -104,6 +111,14 @@ def bind(so: Path) -> ctypes.CDLL:
     ]
     lib.sw_forward_launch.restype = ctypes.c_int
     lib.sw_forward_max_lt.restype = ctypes.c_int
+    if hasattr(lib, "sw_forward_i16_launch"):  # sources before the int16 instance lack it
+        lib.sw_forward_i16_launch.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P,  # qa qs ta ts qlen tlen qc saa s3d
+            _I, _I, _F, _F, _I,                  # go ge w_aa w_3di pad_v
+            _I, _I, _I, _I, _I,                  # B Lq Lt scan_limit ungapped
+            _P, _P, _P, _P,                      # best qend tend stream
+        ]
+        lib.sw_forward_i16_launch.restype = ctypes.c_int
     return lib
 
 
@@ -163,6 +178,7 @@ def sw_forward_cuda(
     gap_window: int = 0,
     ungapped: bool = False,
     qc: Optional[torch.Tensor] = None,  # (B, Lq) int32 per-query-row correction
+    dp_dtype: str = "f32",  # "f32" | "i16": sw_forward_pallas's DP state type
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(best, qend, tend) per pair; see the module docstring."""
     B, Lq = qa.shape
@@ -178,19 +194,26 @@ def sw_forward_cuda(
         _check("qc", qc, torch.int32, (B, Lq), dev)
     if gap_window < 0:
         raise ValueError(f"gap_window must be >= 0, got {gap_window}")
+    if dp_dtype not in DP_DTYPES:
+        raise ValueError(f"dp_dtype must be one of {DP_DTYPES}, got {dp_dtype!r}")
+    if dp_dtype == "i16":
+        i16_contract(Lq, Lt, go, ge, w_aa, w_3di)
 
     if dev.type == "cpu":
         return sw_forward_plain(qa, qs, ta, ts, qlen, tlen, saa, s3d,
                                 go=go, ge=ge, w_aa=w_aa, w_3di=w_3di,
-                                gap_window=gap_window, ungapped=ungapped, qc=qc)
+                                gap_window=gap_window, ungapped=ungapped, qc=qc,
+                                dp_dtype=dp_dtype)
     if dev.type != "cuda":
         raise ValueError(f"sw_forward_cuda: unsupported device {dev}")
     if Lq < 1 or not 1 <= Lt <= MAX_LT:
         raise ValueError(f"sw_forward_cuda: needs Lq >= 1 and 1 <= Lt <= {MAX_LT}, got {Lq}, {Lt}")
 
     out = launch_with(load(), qa, qs, ta, ts, qlen, tlen, saa, s3d, go, ge, w_aa, w_3di,
-                      gap_window, ungapped, qc)
-    if B:
+                      gap_window, ungapped, qc, dp_dtype)
+    if B and dp_dtype == "i16":
+        I16_LAUNCHES["ungapped_i16" if ungapped else "gapped_i16"] += 1
+    elif B:
         LAUNCHES["ungapped" if ungapped else "gapped"] += 1
     return out
 
@@ -233,9 +256,12 @@ def sw_forward_sharded(
 
 
 def launch_with(lib: ctypes.CDLL, qa, qs, ta, ts, qlen, tlen, saa, s3d, go, ge, w_aa, w_3di,
-                gap_window, ungapped, qc) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch `lib`'s kernel on checked CUDA tensors (sw_forward_cuda's
-    inputs) on the current stream; raises if the launch fails."""
+                gap_window, ungapped, qc, dp_dtype: str = "f32",
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch `lib`'s kernel (its int16 instance with dp_dtype="i16", on
+    inputs inside the int16 contract) on checked CUDA tensors
+    (sw_forward_cuda's inputs) on the current stream; raises if the launch
+    fails."""
     B, Lq = qa.shape
     Lt = ta.shape[1]
     dev = qa.device
@@ -244,15 +270,17 @@ def launch_with(lib: ctypes.CDLL, qa, qs, ta, ts, qlen, tlen, saa, s3d, go, ge, 
     tend = torch.empty((B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sw_forward_launch(
-            qa.data_ptr(), qs.data_ptr(), ta.data_ptr(), ts.data_ptr(),
-            qlen.data_ptr(), tlen.data_ptr(),
-            None if qc is None else qc.data_ptr(),
-            saa.data_ptr(), s3d.data_ptr(),
-            float(go), float(ge), float(w_aa), float(w_3di),
-            B, Lq, Lt, scan_limit(Lt, gap_window), int(bool(ungapped)),
-            best.data_ptr(), qend.data_ptr(), tend.data_ptr(), stream,
-        )
+        head = (qa.data_ptr(), qs.data_ptr(), ta.data_ptr(), ts.data_ptr(),
+                qlen.data_ptr(), tlen.data_ptr(), None if qc is None else qc.data_ptr(),
+                saa.data_ptr(), s3d.data_ptr())
+        tail = (B, Lq, Lt, scan_limit(Lt, gap_window), int(bool(ungapped)),
+                best.data_ptr(), qend.data_ptr(), tend.data_ptr(), stream)
+        if dp_dtype == "i16":
+            rc = lib.sw_forward_i16_launch(*head, int(go), int(ge), float(w_aa), float(w_3di),
+                                           i16_pad_value(w_aa, w_3di), *tail)
+        else:
+            rc = lib.sw_forward_launch(*head, float(go), float(ge), float(w_aa), float(w_3di), *tail)
     if rc != 0:
         raise RuntimeError(f"sw_forward_cuda: kernel launch failed, cudaError_t {rc}")
     return best, qend, tend
+
