@@ -60,14 +60,21 @@ failure, and no phase is skipped:
    shape; the 512 self pair of the highest-scoring residue at ge = 1
    capped at 30,000 at (288, 288) and wrapped after 32,760 at (314, 314),
    as JAX's interpret mode gives; and the int16 instance equal to the
-   float32 one on every pair whose float32 best is below the cap.  The
-   int16 probe (scripts/torch_probe_i16.py: twelve int16 operations, each
-   built by its own nvcc run and launched in its own process, held
-   against numpy's wrapping arithmetic) starts with 6a, on the cores of
-   phase 5's CPU run, and is read after 2d; any probe that fails fails
-   the run.
+   float32 one on every pair whose float32 best is below the cap.  Then
+   the shapes that straddle the instance's fold of two int16 columns to a
+   word (I16_SEAM: odd Lt, tlen past the middle, one to eight warps a
+   pair, Lt at the contract's edge and at 4,096) at I16_SEAM_WINDOWS
+   (windows of 0 to past Lt: each windowed-max mode) and ungapped; with
+   I16_SHAPES they reach every instance the kernel's table compiles.  The
+   int16 probe (scripts/torch_probe_i16.py:
+   twenty int16 operations, each built by its own nvcc run and launched
+   in its own process, held against numpy's wrapping arithmetic) starts
+   with 6a, on the cores of phase 5's CPU run, and is read after 2d; any
+   probe that fails fails the run.
 3. Times per shape and mode (CUDA events around a run of back-to-back
-   launches, divided by their number, after a warm-up): kernel ms and
+   launches queued behind a spin of the card, so no gap of the host's
+   falls between them, divided by their number, after a warm-up; every
+   phase's kernel readings are taken so, time_cuda): kernel ms and
    GCUPS, the plain version's ms on the card, the bound, and the kernel's
    share of the bound.
    bound_ms = max(ops / peak scalar rate, bytes / memory rate), with
@@ -103,9 +110,11 @@ failure, and no phase is skipped:
    launches x (ms - bound) per bucket and instance, summed.
 3g. The int16 instance beside the float32 one at I16_SHAPES (gap_window 64
    and ungapped, bias on): both kernels' ms, the plain int16 DP's ms on
-   the card, and the int16 bound, phase 3's rule with I16_OPS_PER_CELL
-   (the score's float ops on the FP32 lanes, the int16 ops packed two to
-   an INT32 lane: both SMs x 128 x the maximum SM clock).
+   the card, and the int16 bound (i16_bound: the instructions the function
+   needs per word of two cells, I16_PACKED_PER_WORD at the packed forms'
+   issue rate that scripts/torch_probe_i16.py measures and
+   I16_SCORE_PER_WORD at the issue limit, over the SMs at the maximum SM
+   clock; or the bytes).
 3b. The MSA's NW forward (ops/nw_device.py, PyTorch ops) on the card
    against the same function on the CPU, bit-identical on (bits, end_i,
    end_j, score): buckets 64, 512 and 2,048, batches of 1 and 64 (16 at
@@ -359,9 +368,9 @@ Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel mode: launches in phase 4 and 7a, times and bound at (512, 512),
 the main path's most common bucket, for the banded kernel 3e's at
 BANDED_TIMED, for the direction-bit kernel 3b's NW at 64 x 512² (int32)
-and 3d's SW at 64 x 512² (int16), for the int16 instance 3g's at
+and 3d's SW at 64 x 512² (int16), for the packed int16 instance 3g's at
 I16_TIMED with no launch on the main path, and for the probe the sums
-over its twelve kernels of one launch's ms, numpy's ms and the bytes'
+over its twenty kernels of one launch's ms, numpy's ms and the bytes'
 bound; 6a
 prints the cascade's launches;
 phases 8 and 10 add no kernel: the ProstT5 model is PyTorch ops; a row
@@ -395,6 +404,8 @@ GAPS = [(100.0, 10.0), (28.0, 3.0)]
 TIMED_MODES = {"gapped": dict(gap_window=64), "ungapped": dict(ungapped=True)}  # the engine's
 OPS_PER_CELL = {"gapped": 14, "ungapped": 6}  # +1 with the bias add
 LANES_PER_SM = 128      # FP32 lanes of a Hopper SM
+SPIN_CYCLES_PER_S = 2.0e9  # time_cuda's spin: cycles a second, at or above the card's SM clock
+SPIN_MAX_S = 0.1  # the longest spin time_cuda queues its calls behind
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_SHAPE = (512, 512)
 # phases 2d and 3g, the int16 instance (dp_dtype="i16"): (B, L, go, ge), the
@@ -403,16 +414,33 @@ I16_SHAPES = [(512, 128, 100.0, 10.0), (512, 256, 100.0, 10.0), (64, 1024, 10.0,
 I16_MODES = {"gapped_w64": dict(gap_window=64), "gapped_w0": dict(gap_window=0),
              "ungapped": dict(ungapped=True)}
 I16_TIMED = (512, 256)  # the JSON line's int16 rows
-# per cell, the operations the int16 recurrence needs (not the wraps of an
-# implementation that keeps int16 in 32-bit registers): the float32
-# count's 14 (6), of which 3 make the score, plus the score's bfloat16
-# round and its int16 conversion, and the cap (gapped only); +1 with the
-# bias add.  The score's float ops run at the FP32 lanes' rate (128 an SM
-# a clock) and the int16 ops at the packed int16x2 rate (2 x 64 INT32
-# lanes an SM a clock; scripts/torch_probe_i16.py holds those ops exact),
-# the same rate: so phase 3's peak_ops over the sum
-I16_OPS_PER_CELL = {"gapped": 17, "ungapped": 8}
+# The int16 bound counts warp-instructions per warp-word (32 words of two
+# cells each, the packed layout) that the int16 function needs: packed
+# int16x2 and DPX forms, each fused form one instruction (gapped, window
+# 64: F 2, H0 1, t = H0 + j*ge 1, the window's prefix and suffix maxima 1
+# + 1, E and its max with H0 2, the cap 1, the best 0.5 with a three-way
+# max; ungapped: H 1, the best 0.5) at I16_PACKED_RATE, and the score at
+# the issue limit of four warp-instructions an SM a cycle (faster than any
+# of its instructions, so the bound stays a lower one): per word four table
+# reads, two three-input adds (the bias in them) and a pack, where every
+# cell sums to an integer of at most 256 (bfloat16 holds it, so the
+# plain version's rounding and conversion leave it as it is); the other
+# rows add the rounding and the conversion of each cell (4 a word).
+I16_PACKED_PER_WORD = {"gapped": 9.5, "ungapped": 1.5}
+I16_SCORE_PER_WORD = {True: 7, False: 11}  # fast rows, other rows
+# the packed forms' issue rate, warp-instructions an SM a cycle: 64 lanes
+# (scripts/torch_probe_i16.py measures 1.93-1.99 for each form the count
+# uses, its own loop's instructions among them)
+I16_PACKED_RATE = 2.0
+ISSUE_LIMIT = 4  # warp-instructions an SM a cycle: one a scheduler
+I16_FAST_MAX = 256
 I16_CAP_PAIR = {False: (30000.0, 288, 288), True: (32760.0, 314, 314)}  # 512 self pair, ge 1
+# 2d's shapes across the int16 instance's fold (B, Lq, Lt, go, ge): odd Lt,
+# one column past a one-warp block, several warps, the contract's edge at
+# ge 1 (2,616 + 30,150 < 32,767) and MAX_LT at ge 0; and their windows
+I16_SEAM = [(64, 100, 127, 100.0, 10.0), (32, 200, 257, 28.0, 3.0), (16, 300, 1023, 10.0, 1.0),
+            (8, 100, 2616, 10.0, 1.0), (4, 40, 4096, 10.0, 0.0)]
+I16_SEAM_WINDOWS = [0, 1, 3, 64, 100, 5000]
 # 2b: the banded kernel's (B, Lq, Lt, W), as tests/test_torch_banded_cuda.py: single and
 # multi-warp bands, an odd W and a W wider than the target
 BANDED_GRID = [(64, 256, 256, 128), (32, 512, 600, 256), (16, 700, 500, 512), (8, 300, 2100, 1024),
@@ -631,6 +659,35 @@ def bytes_of(args, qc):
     return n + 2 * 21 * 21 * 4 + args[0].shape[0] * 12
 
 
+def i16_bound(ctx, args, qc, kind, w_aa=None, w_3di=None):
+    """(bound_ms, ops_ms, bytes_ms) of one launch of the int16 instance on
+    these inputs: the instructions of I16_PACKED_PER_WORD and
+    I16_SCORE_PER_WORD over the card's SMs at its maximum SM clock, or the
+    bytes over HBM_BYTES_PER_S."""
+    import torch
+
+    from unicore_tpu_torch.ops.sw import W_3DI_INT, W_AA_INT
+
+    w_aa, w_3di = W_AA_INT if w_aa is None else w_aa, W_3DI_INT if w_3di is None else w_3di
+    tabs = [(m * w).to(torch.bfloat16).float() for m, w in ((ctx["saa"], w_aa), (ctx["s3d"], w_3di))]
+    ql, tl = args[4].long().clamp(0, args[0].shape[1]), args[5].long()
+    rows = torch.arange(args[0].shape[1], device=ql.device)[None, :] < ql[:, None]
+    if all(bool((t == t.round()).all()) for t in tabs):
+        room = I16_FAST_MAX - sum(float(t.abs().max()) for t in tabs)
+        bias = torch.zeros_like(rows, dtype=torch.float32) if qc is None else qc.float().to(torch.bfloat16).float()
+        fast = rows & (bias.abs() <= room)
+    else:
+        fast = torch.zeros_like(rows)
+    fast_cells = float((fast.sum(1).double() * tl.double()).sum())
+    other_cells = cells_of(args) - fast_cells
+    cycles = sum(cells / 64 * (I16_PACKED_PER_WORD[kind] / I16_PACKED_RATE
+                               + I16_SCORE_PER_WORD[f] / ISSUE_LIMIT)
+                 for f, cells in ((True, fast_cells), (False, other_cells)))
+    ops_ms = cycles / (ctx["peak_ops"] / LANES_PER_SM) * 1e3  # peak_ops / 128: SMs x the SM clock
+    bytes_ms = bytes_of(args, qc) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms
+
+
 def bound_of(ctx, args, qc, kind):
     """(bound_ms, ops_ms, bytes_ms) of one launch on these inputs."""
     ops_ms = cells_of(args) * (OPS_PER_CELL[kind] + 1) / ctx["peak_ops"] * 1e3
@@ -640,13 +697,25 @@ def bound_of(ctx, args, qc, kind):
 
 def time_cuda(fn, n):
     """ms per call of `fn`: CUDA events around n back-to-back calls, after
-    two warm-up calls, so the host's work per call overlaps the device's."""
+    two warm-up calls.  The calls are queued behind a spin of the card
+    (torch.cuda._sleep) of twice the host's time to enqueue them (the
+    second warm-up's host time, times n) plus 1 ms, so the events enclose
+    launches that are already queued and a slow host adds no gaps between
+    them.  Where the n calls take the host more than SPIN_MAX_S (the plain
+    versions' row loops of many small launches, which no queue holds) there
+    is no spin, and the reading includes the host's gaps, as a call that
+    waits on the card (none of the wrappers does) reads either way."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
+    enqueue_s = (time.perf_counter() - t0) * n
     torch.cuda.synchronize()
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if 2 * enqueue_s + 1e-3 <= SPIN_MAX_S:
+        torch.cuda._sleep(int((2 * enqueue_s + 1e-3) * SPIN_CYCLES_PER_S))
     s.record()
     for _ in range(n):
         fn()
@@ -1304,10 +1373,32 @@ def i16_inputs(ctx, B, L, bias):
     return args, qc
 
 
+def i16_seam_inputs(ctx, B, Lq, Lt):
+    """Ragged pairs whose targets end anywhere, half of them past Lt/2 (the
+    fold of a one-warp block), every fourth a self pair with +255 on every
+    other such pair's rows; bias on."""
+    import torch
+
+    rng = ctx["rng"]
+    qa, qs = (rng.randint(0, 20, (B, Lq)).astype(np.int32) for _ in range(2))
+    ta, ts = (rng.randint(0, 20, (B, Lt)).astype(np.int32) for _ in range(2))
+    ql = rng.randint(1, Lq + 1, B).astype(np.int32)
+    tl = rng.randint(1, Lt + 1, B).astype(np.int32)
+    tl[::2] = rng.randint(Lt // 2, Lt + 1, len(tl[::2]))
+    hot = np.arange(3, B, 4)
+    n = min(Lq, Lt)
+    ta[hot, :n], ts[hot, :n] = qa[hot, :n], qs[hot, :n]
+    qc = rng.randint(-60, 40, (B, Lq)).astype(np.int32)
+    qc[hot[::2]] = 255
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(ctx["dev"])  # noqa: E731
+    return [t(x) for x in (qa, qs, ta, ts, ql, tl)], t(qc)
+
+
 def phase_i16_exact(ctx):
     """Phase 2d: the int16 instance vs the plain int16 DP, bit-exact;
     the 512 self pair's cap and wrap; the int16 instance equal to the
-    float32 one on every pair below the cap.  Returns the largest |best|
+    float32 one on every pair below the cap; the shapes across its fold
+    (I16_SEAM).  Returns the largest |best|
     difference per mode."""
     import torch
 
@@ -1353,24 +1444,40 @@ def phase_i16_exact(ctx):
         check(got == want and all(torch.equal(a, b) for a, b in zip(k, p)),
               f"int16 512 self pair ungapped={ungapped}: kernel {got}, plain "
               f"{(float(p[0][0]), int(p[1][0]), int(p[2][0]))}, JAX {want}")
+    n_seam = 0
+    for B, Lq, Lt, go, ge in I16_SEAM:
+        args, qc = i16_seam_inputs(ctx, B, Lq, Lt)
+        for kw in [dict(gap_window=gw) for gw in I16_SEAM_WINDOWS] + [dict(ungapped=True)]:
+            k = sw_cuda.sw_forward_cuda(*args, saa, s3d, go=go, ge=ge, qc=qc, dp_dtype="i16", **kw)
+            p = sw_forward_plain(*args, saa, s3d, go=go, ge=ge, qc=qc, dp_dtype="i16", **kw)
+            torch.cuda.synchronize()
+            kind = "ungapped_i16" if kw.get("ungapped") else "gapped_i16"
+            err = float((k[0] - p[0]).abs().max())
+            max_err[kind] = max(max_err[kind], err)
+            check(all(torch.equal(a, b) for a, b in zip(k, p)),
+                  f"int16 kernel != plain at B={B} Lq={Lq} Lt={Lt} {kw}: "
+                  f"max |best| err {err}, qend diff {int((k[1] != p[1]).sum())}, "
+                  f"tend diff {int((k[2] != p[2]).sum())}")
+            n_seam += 1
     log(f"[phase 2d] {n_cmp} int16 kernel-vs-plain comparisons bit-exact on (best, qend, tend), "
         f"the 512 self pair capped and wrapped as in JAX, {n_f32} pairs below the cap equal to "
-        f"the float32 kernel, in {time.perf_counter() - t0:.1f} s")
+        f"the float32 kernel, {n_seam} comparisons across the fold (I16_SEAM) bit-exact, "
+        f"in {time.perf_counter() - t0:.1f} s")
     return max_err
 
 
 def phase_i16_times(ctx, reps=20):
     """Phase 3g: the int16 instance beside the float32 one at I16_SHAPES
     (gap_window 64 and ungapped, bias on): kernel ms, the plain int16
-    DP's ms (one call) and the bound (I16_OPS_PER_CELL over peak_ops);
+    DP's ms (one call) and the bound (i16_bound);
     returns {(B, L, kind): numbers}."""
     from unicore_tpu_torch.ops import sw_cuda
     from unicore_tpu_torch.ops.sw import sw_forward_plain
 
     saa, s3d = ctx["saa"], ctx["s3d"]
-    log(f"[phase 3g] B L mode | int16 ms, float32 ms | int16 plain ms | int16 bound ms (ops at "
-        f"{ctx['peak_ops'] / 1e12:.2f} Tops/s: float on the FP32 lanes, int16 packed two to an INT32 "
-        f"lane, bytes) | share")
+    log(f"[phase 3g] B L mode | int16 ms, float32 ms | int16 plain ms | int16 bound ms (instructions: "
+        f"packed at {I16_PACKED_RATE} and the score at {ISSUE_LIMIT} a cycle an SM, at "
+        f"{ctx['peak_ops'] / LANES_PER_SM / 1e9:.0f} G SM-cycles/s; bytes) | share")
     timing = {}
     for B, L, go, ge in I16_SHAPES:
         args, qc = sw_inputs(ctx["rng"], B, L, "on", ctx["saa_np"], ctx["s3d_np"], ctx["dev"])
@@ -1380,9 +1487,7 @@ def phase_i16_times(ctx, reps=20):
             f32_ms = time_cuda(run, reps)
             plain_ms = once_ms(lambda: sw_forward_plain(*args, saa, s3d, go=go, ge=ge, qc=qc,
                                                         dp_dtype="i16", **kw))
-            ops_ms = cells_of(args) * (I16_OPS_PER_CELL[kind] + 1) / ctx["peak_ops"] * 1e3
-            bytes_ms = bytes_of(args, qc) / HBM_BYTES_PER_S * 1e3
-            bound_ms = max(ops_ms, bytes_ms)
+            bound_ms, ops_ms, bytes_ms = i16_bound(ctx, args, qc, kind)
             timing[(B, L, kind)] = dict(ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                         bound_by="operations" if ops_ms >= bytes_ms else "bytes")
             log(f"  {B:4d} {L:5d} {kind:8s} | {ms:8.4f} {f32_ms:8.4f} | {plain_ms:9.2f} | "
@@ -1815,9 +1920,21 @@ def phase_phylo(ctx):
         check(torch.get_float32_matmul_precision() == "high", "the engine did not restore the matmul precision")
         if err["loglik_batch"] > LL_RTOL:  # each candidate's lnL, for the record (ROADMAP Queue 3)
             f64 = float64_loglik(cpu, cb[:k], bb[:k])
+            # the CPU side again, at its thread count and at one thread: a
+            # value that does not come back is the CPU side's, not the card's
+            again = cpu.loglik_batch(cb[:k], bb[:k])
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                one = cpu.loglik_batch(cb[:k], bb[:k])
+            finally:
+                torch.set_num_threads(threads)
+            log(f"  loglik_batch: torch threads {threads}, cores {sorted(os.sched_getaffinity(0))}, "
+                f"matmul precision {torch.get_float32_matmul_precision()}")
             for i, (a, g) in enumerate(zip(*ll_batch)):
-                log(f"  loglik_batch candidate {i}: CPU {float(a)!r}, CUDA {float(g)!r}, "
-                    f"float64 on the CPU {f64[i]!r}, relative error {abs(float(g) - float(a)) / abs(float(a)):.3g}")
+                log(f"  loglik_batch candidate {i}: CPU {float(a)!r} (again {float(again[i])!r}, one thread "
+                    f"{float(one[i])!r}), CUDA {float(g)!r}, float64 on the CPU {f64[i]!r}, relative error "
+                    f"{abs(float(g) - float(a)) / abs(float(a)):.3g}")
         for name, e in err.items():
             lim = 1.0 if "site" in name else (BLEN_LL_RTOL if "optimize" in name else LL_RTOL)
             check(e <= lim, f"likelihood on CUDA != CPU: {name} error {e:.3g} > {lim}")
@@ -3873,7 +3990,7 @@ def main() -> int:
     for kind in ("gapped", "ungapped"):
         t = i16_timing[(*I16_TIMED, kind)]
         kernels.append({
-            "name": f"sw_forward_i16_{kind}", "route": "cuda",
+            "name": f"sw_forward_i16_packed_{kind}", "route": "cuda",
             "source": "unicore_tpu_torch/csrc/sw.cu",
             "replaces": "unicore_tpu/ops/sw.py:361",
             "launches": launches[f"{kind}_i16"] + search_launches[f"{kind}_i16"],

@@ -10,7 +10,8 @@ NVCC_FLAGS, into build/), and launched in a process of its own, so that a
 build or a launch that fails takes only its own probe down.  The builds
 start together, then the launches.  PROBES holds the seven operations of
 scripts/probe_i16.py with the same meaning on 16 x 128 int16, and the
-packed int16x2 forms the int16 SW instance could use.  Each runs on two
+packed int16x2 forms: the first five, and every further form the int16 SW
+instance (csrc/sw.cu, sw_i16_kernel) uses.  Each runs on two
 input sets, x ones and y twos as in the JAX probe, and a seeded random set
 that reaches +-32767 so that wrapping shows, and is held against numpy's
 wrapping int16 arithmetic (`reference`).
@@ -20,7 +21,10 @@ CRASH (with the last line of the error), then "k/N int16 ops compile and
 match".  Exits 0 only if all N pass; 2, saying which is missing, when there
 is no nvcc or no card.  --json writes each probe's status, its largest
 difference from numpy, its kernel's time (CUDA events over a run of
-launches) beside numpy's on the host, and the bytes it must move.
+launches) beside numpy's on the host, and the bytes it must move; and for
+each packed form its issue rate, the warp-instructions an SM issues a cycle
+on independent chains (probe_i16.cu's rate_kernel, clock64), printed
+beside its status: the rate chip_smoke.py's int16 bound counts at.
 """
 
 from __future__ import annotations
@@ -42,6 +46,25 @@ SHAPE = (16, 128)
 SEED = 16
 REPS = 100  # timed launches per probe
 
+def halves(x):
+    """(lo, hi) halves of the packed words: elements 2k and 2k + 1."""
+    p = x.reshape(-1, 2)
+    return p[:, 0], p[:, 1]
+
+
+def words(lo, hi):
+    """int16 elements from the words' (lo, hi) halves."""
+    return np.stack([lo, hi], axis=1).reshape(SHAPE)
+
+
+def perm(x, y, sel):
+    """__byte_perm(x, y, sel) on the words, for selectors that move whole
+    halves: nibble pairs (1, 0) -> x's lo, (3, 2) -> x's hi, (5, 4) -> y's
+    lo, (7, 6) -> y's hi."""
+    src = dict(zip((0x10, 0x32, 0x54, 0x76), (*halves(x), *halves(y))))
+    return words(src[sel & 0xff], src[sel >> 8])
+
+
 # name -> the operation on int16 arrays x, y, z, as numpy computes it (int16
 # arithmetic wraps); the order is the source's PROBE_OP
 PROBES = {
@@ -57,9 +80,18 @@ PROBES = {
     "vsub2": lambda x, y, z: x - y,
     "viaddmax_s16x2": lambda x, y, z: np.maximum(x + y, z),
     "vimax3_s16x2": lambda x, y, z: np.maximum(np.maximum(x, y), z),
+    "viaddmax_s16x2_relu": lambda x, y, z: np.maximum(np.maximum(x + y, z), np.int16(0)),
+    "vmins2": lambda x, y, z: np.minimum(x, y),
+    "viaddmax_s16x2_none": lambda x, y, z: x + y,
+    "byte_perm_rot": lambda x, y, z: perm(x, y, 0x1054),
+    "byte_perm_hi2lo": lambda x, y, z: perm(x, y, 0x7632),
+    "byte_perm_los": lambda x, y, z: perm(x, y, 0x5410),
+    "byte_perm_swap": lambda x, y, z: perm(x, y, 0x1032),
+    "viaddmin_s16x2_relu": lambda x, y, z: np.maximum(np.minimum(x + y, z), np.int16(0)),
 }
 # operands each probe reads (the others read x and y)
-OPERANDS = {"i16_roll": 1, "i16_cast_from_i32": 1, "viaddmax_s16x2": 3, "vimax3_s16x2": 3}
+OPERANDS = {"i16_roll": 1, "i16_cast_from_i32": 1, "viaddmax_s16x2": 3, "vimax3_s16x2": 3,
+            "viaddmax_s16x2_relu": 3, "byte_perm_swap": 1, "viaddmin_s16x2_relu": 3}
 
 
 def inputs():
@@ -131,37 +163,48 @@ def child(so):
             return 1
         print(f"RESULT {set_name} {out.tobytes().hex()}")
         print(f"MS {set_name} {ms.value!r}")
+    rate = ctypes.c_float(0.0)
+    lib.probe_i16_rate.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.probe_i16_rate.restype = ctypes.c_int
+    rc = lib.probe_i16_rate(inputs()["random"][0].ctypes.data, ctypes.byref(rate))
+    if rc != 0:
+        print(f"cudaError_t {rc} measuring the issue rate", file=sys.stderr)
+        return 1
+    print(f"RATE all {rate.value!r}")
     return 0
 
 
 def launch(name, so):
     """Run probe `name` from library `so` in a process of its own and
-    check it: (status, detail, kernel ms, max |result - numpy|)."""
+    check it: (status, detail, kernel ms, max |result - numpy|, the packed
+    form's warp-instructions an SM a cycle or None)."""
     if isinstance(so, Exception):
-        return "CRASH", (str(so).strip().splitlines() or [""])[-1][:160], None, None
+        return "CRASH", (str(so).strip().splitlines() or [""])[-1][:160], None, None, None
     r = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", str(so)],
                        capture_output=True, text=True, timeout=300)
     if r.returncode != 0:
-        return "CRASH", (r.stderr.strip().splitlines() or [f"exit code {r.returncode}"])[-1][:160], None, None
-    got, ms = {}, []
+        return "CRASH", (r.stderr.strip().splitlines() or [f"exit code {r.returncode}"])[-1][:160], None, None, None
+    got, ms, rate = {}, [], None
     for line in r.stdout.splitlines():
         tag, set_name, val = line.split()
         if tag == "RESULT":
             got[set_name] = np.frombuffer(bytes.fromhex(val), np.int16).reshape(SHAPE)
         elif tag == "MS":
             ms.append(float(val))
+        elif tag == "RATE" and float(val) >= 0:
+            rate = float(val)
     err, wrong = 0, ""
     for set_name, (x, y, z) in inputs().items():
         want = reference(name, x, y, z)
         if set_name not in got:
-            return "CRASH", f"no result on {set_name}", None, None
+            return "CRASH", f"no result on {set_name}", None, None, None
         diff = np.abs(got[set_name].astype(np.int32) - want)
         err = max(err, int(diff.max()))
         if err and not wrong:
             r_, c_ = np.argwhere(diff > 0)[0]
             wrong = (f"{set_name}[{r_},{c_}]: x={x[r_, c_]} y={y[r_, c_]} z={z[r_, c_]} "
                      f"-> {got[set_name][r_, c_]}, numpy {want[r_, c_]}")
-    return ("WRONG" if err else "OK"), wrong, max(ms), err
+    return ("WRONG" if err else "OK"), wrong, max(ms), err, rate
 
 
 def numpy_ms(name, reps=1000):
@@ -193,11 +236,12 @@ def main() -> int:
         results = list(pool.map(launch, names, libs))
     ok = 0
     rows = []
-    for name, (status, detail, ms, err) in zip(names, results):
+    for name, (status, detail, ms, err, rate) in zip(names, results):
         ok += status == "OK"
-        print(f"{name:22s} {status:5s}  {detail}", flush=True)
+        issue = f"  {rate:.2f} warp-instructions an SM a cycle" if rate is not None else ""
+        print(f"{name:22s} {status:5s}  {detail}{issue}", flush=True)
         rows.append(dict(name=name, status=status, detail=detail, ms=ms, max_abs_err=err,
-                         numpy_ms=numpy_ms(name), bytes=bytes_moved(name)))
+                         numpy_ms=numpy_ms(name), bytes=bytes_moved(name), issue_rate=rate))
     print(f"{ok}/{len(names)} int16 ops compile and match", flush=True)
     if opts.json:
         with open(opts.json, "w") as f:

@@ -1,6 +1,11 @@
-"""The SW kernel's int16 instance (csrc/sw.cu, dp_dtype="i16") against the
-plain int16 DP (ops/sw.py::sw_forward_i16), and the int16 probes
-(scripts/torch_probe_i16.py), on the card.
+"""The SW kernel's int16 instance (csrc/sw.cu's sw_i16_kernel, dp_dtype="i16":
+two int16 columns to a word, a warp's block of 64 columns a word folded in
+two) against the plain int16 DP (ops/sw.py::sw_forward_i16), at the
+engine's buckets and at shapes that straddle the fold (the seam): odd Lt,
+tlen in the second half, windows of 0 to past Lt, Lt at the contract's
+edge, one to eight warps a pair at each words-a-lane count of the
+kernel's table; and the int16
+probes (scripts/torch_probe_i16.py), on the card.
 
 Imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -9,6 +14,7 @@ Imports nothing of JAX, so it also runs where JAX is not installed:
 Every test is marked `cuda` and skips where torch.cuda.is_available() is
 False."""
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -51,6 +57,42 @@ def hot_pairs(seed, B, L, bias):
 def mats():
     dev = torch.device("cuda")
     return torch.from_numpy(SAA).to(dev), torch.from_numpy(S3D).to(dev)
+
+
+def seam_pairs(seed, B, Lq, Lt):
+    """Ragged pairs whose targets end anywhere, most past the middle of Lt
+    (the fold of a one-warp block), every fourth a self pair."""
+    rng = np.random.RandomState(seed)
+    qa, qs, ta, ts, ql, tl = random_pairs(rng, B, Lq, Lt, minlen=4)
+    ql[5::8], tl[6::8] = 1, 1
+    tl[::2] = rng.randint(Lt // 2, Lt + 1, len(tl[::2]))
+    hot = np.arange(3, B, 4)
+    n = min(Lq, Lt)
+    ta[hot, :n], ts[hot, :n] = qa[hot, :n], qs[hot, :n]
+    qc = rng.randint(-60, 40, (B, Lq)).astype(np.int32)
+    qc[hot[::2]] = 255
+    dev = torch.device("cuda")
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (qa, qs, ta, ts, ql, tl)], \
+        torch.from_numpy(qc).to(dev)
+
+
+# (B, Lq, Lt, go, ge): odd Lt, one warp and one column past it at each words
+# count of the table (so every compiled instance, gapped and ungapped), up
+# to 8 warps, and Lt at the contract's edge (ge 1: 2,616 + 30,150 < 32,767)
+SEAM_SHAPES = [(64, 100, 127, 100, 10), (64, 100, 129, 100, 10), (32, 200, 255, 100, 10),
+               (32, 200, 257, 28, 3), (16, 300, 1023, 10, 1), (16, 150, 1025, 10, 1),
+               (16, 150, 2049, 10, 1),
+               (8, 100, 2616, 10, 1), (4, 40, 4096, 10, 0)]
+SEAM_WINDOWS = [0, 1, 3, 8, 64, 100, 512, 5000]
+
+
+def assert_kernel_matches_plain(t, qc, saa, s3d, **kw):
+    k = sw_cuda.sw_forward_cuda(*t, saa, s3d, qc=qc, dp_dtype="i16", **kw)
+    torch.cuda.synchronize()
+    p = tsw.sw_forward_plain(*t, saa, s3d, qc=qc, dp_dtype="i16", **kw)
+    for name, a, b in zip(("best", "qend", "tend"), k, p):
+        bad = (a != b).nonzero().flatten()[:8].tolist()
+        assert not bad, (name, kw, bad, a[bad].tolist(), b[bad].tolist())
 
 
 @pytest.mark.cuda
@@ -107,10 +149,65 @@ def test_i16_kernel_equals_f32_kernel_below_the_cap(mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lt,go,ge", SEAM_SHAPES)
+def test_i16_kernel_seam_shapes(B, Lq, Lt, go, ge):
+    """Every window of SEAM_WINDOWS (each windowed-max mode, windows across
+    the fold and one to several warps back) and the ungapped mode, bias on."""
+    need_cuda()
+    saa, s3d = mats()
+    t, qc = seam_pairs(Lt, B, Lq, Lt)
+    for gw in SEAM_WINDOWS:
+        assert_kernel_matches_plain(t, qc, saa, s3d, go=go, ge=ge, gap_window=gw)
+    assert_kernel_matches_plain(t, qc, saa, s3d, go=go, ge=ge, ungapped=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lt", [250, 700])
+def test_i16_kernel_odd_gaps_and_weights(Lt):
+    """go < 0 (every row runs, rows past qlen on the pad code), ge < 0,
+    go - ge = -20,002 (column 0's E positive), and weights that send every
+    row to the per-cell score; one warp a pair (250) and three (700)."""
+    need_cuda()
+    saa, s3d = mats()
+    t, qc = seam_pairs(9, 32, 80, Lt)
+    for go, ge in ((-3, 2), (6, -1), (-20001, 1), (10, -40)):
+        for kw in (dict(gap_window=0), dict(gap_window=64), dict(ungapped=True)):
+            assert_kernel_matches_plain(t, qc, saa, s3d, go=go, ge=ge, **kw)
+    assert_kernel_matches_plain(t, qc, saa, s3d, ge=1.0, w_aa=40.0, w_3di=3.0, gap_window=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lt", [1, 2, 3])
+def test_i16_kernel_tiny_targets(Lt):
+    """Targets of 1 to 3 columns, queries of 1 to 5 rows, qlen and tlen 0
+    among them, every mode, go >= 0 and go < 0."""
+    need_cuda()
+    saa, s3d = mats()
+    rng = np.random.RandomState(Lt)
+    qa = rng.randint(0, 20, (6, 5)).astype(np.int32)
+    ta = rng.randint(0, 20, (6, Lt)).astype(np.int32)
+    ql = np.array([0, 1, 5, 3, 5, 2], np.int32)
+    tl = np.array([Lt, Lt, 0, 1, Lt, Lt], np.int32)
+    dev = torch.device("cuda")
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (qa, qa[:, ::-1], ta, ta, ql, tl)]
+    for kw in MODES.values():
+        assert_kernel_matches_plain(t, None, saa, s3d, **kw)
+        assert_kernel_matches_plain(t, None, saa, s3d, go=-3, ge=2, **kw)
+
+
+def probe_count():
+    spec = importlib.util.spec_from_file_location("torch_probe_i16", os.path.join(REPO, "scripts", "torch_probe_i16.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return len(mod.PROBES)
+
+
+@pytest.mark.cuda
 def test_probes_compile_and_match(tmp_path):
     need_cuda()
     out = tmp_path / "probes.json"
     r = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "torch_probe_i16.py"),
                         "--json", str(out)], capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "12/12 int16 ops compile and match" in r.stdout
+    n = probe_count()
+    assert n == 20 and f"{n}/{n} int16 ops compile and match" in r.stdout
