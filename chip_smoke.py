@@ -13,8 +13,9 @@ failure, and no phase is skipped:
    together).
 2. Kernel vs plain version on the card, bit-exact on (best, qend, tend):
    gapped with gap_window 64 and 0, and ungapped; bias off, on and at
-   exactly +-bias_clip_bound; gaps 100/10 and 28/3; (B, L) in (512, 128),
-   (512, 256), (512, 512), (512, 1024), (192, 512) and (48, 2048), with
+   exactly +-bias_clip_bound; gaps 100/10 and 28/3; (B, L) in
+   EXACT_SHAPES, (512, 128), (512, 256), (512, 512), (128, 1024), (192,
+   512) and (16, 2048), with
    ragged lengths and planted homologies, half the mode and gap settings
    per shape and bias, the other half on the next.  Then the edges of the kernel's
    mapping (EDGE_SHAPES, B x Lt <= 64 x 4,096, Lq != Lt): every case of
@@ -123,7 +124,8 @@ failure, and no phase is skipped:
    down to 1.  Then at the merge pipeline's full batches (64 pairs at
    bucket 512, 16 at 2,048), on int32 scores (the pipeline's) and int16
    (nw_align_batch's): the kernel's ms (CUDA events), the plain version's
-   ms per dispatch on the card and on the CPU, the device's busy time
+   ms per dispatch on the card and, at the JSON line's row (64 x 512,
+   int32), on the CPU and the device's busy time
    inside one plain dispatch from a torch.profiler trace, and the bound,
    max(cells x DIRBITS_OPS_PER_CELL / peak scalar rate, (S, a byte of
    bits a cell, lengths and end cells) / 3.35 TB/s); the fused
@@ -154,16 +156,17 @@ failure, and no phase is skipped:
    a planted diagonal, gap windows that force E/F states, and tie windows
    (scores in {-1, 0, 1}), sizes ragged down to 1 x 1.  Then at the full
    batches of buckets 512 and 1,024 (int16 scores) 3b's times: the
-   kernel's, the plain version's on the card and the CPU, the plain
-   version's busy time, and the bound.
+   kernel's, the plain version's on the card, at 512 also on the CPU and
+   its busy time, and the bound.
 4. The main path end to end at a real size: 20 synthetic proteomes x 120
    proteins (2,400 sequences, under the 5,000-sequence cascade
    threshold), gene families evolved along a random species tree with
    substitutions and indels, some families missing or duplicated in some
    species, lengths lognormal (median 300, clipped to 50-2,000).
    `createdb mock`, `cluster`, `profile` and `tree -n` (foldmason) run as
-   `python -m unicore_tpu_torch` subprocesses with a fresh HOME (so the
-   E-value calibration runs on the kernel).  Prints the stage times, the
+   `python -m unicore_tpu_torch` calls one after another in one
+   subprocess (cli_chain, as easy-core runs its stages) with a fresh HOME
+   (so the E-value calibration runs on the kernel).  Prints the stage times, the
    pipeline and MSA counts, banded.seconds with its split (seed vote,
    packing, device), the banded batches (banded.launches), pairs and
    buckets, and the kernels' launches in that run; requires both
@@ -215,21 +218,26 @@ failure, and no phase is skipped:
        gene a tree over its taxa, supports in [0, 100]
        (one split may have none), a finite lnL, the unpadded pattern count
        in iqtree.iqtree; seconds and Adam steps per gene.  Beside it, on
-       other cores, the two genes' lockstep inference (fasttree, -gamma,
-       in process) against a solo inference of each gene (a process each):
-       the same splits but those on a branch of at most RESOLVED in the
-       tree that has them (RF is printed), lnL within SOLO_LL_RTOL.  Then
-       the slice's new device work timed alone: a canopy gram and one
-       gene-batched likelihood call against the per-gene calls.
+       other cores, the lockstep inference (fasttree, -gamma, in process)
+       of the first two core genes of phase 5's CUDA output to share a
+       lockstep group (5 taxa) against a solo inference of each gene (a
+       process each): the same splits but those on a branch of at most
+       RESOLVED in the tree that has them (RF is printed), lnL within
+       SOLO_LL_RTOL.  Then the slice's new device work timed alone: a
+       canopy gram and one gene-batched likelihood call over phase 4's
+       group against the per-gene calls.
    6d. `gene-tree` with its defaults on copies of phase 5's first
        CROSS_GENETREE_GENES core genes, on CUDA and inside phase 5's CPU
        run: the outputs compared as phase 5 compares its trees.
    6e. `config --check` on the card: exit 0, CUDA with 1 device and the
-       card's name, every engine ok but mmseqs (no factory, as in JAX).
+       card's name, every engine ok but mmseqs (no factory, as in JAX);
+       a process of its own, started with the run on the CPU run's cores
+       and read after 6a.
 7. The search path and partitioned models:
    7a. `search` at phase 4's full width on CUDA (a CLI subprocess with a
        fresh HOME, so the E-value fit runs on the kernel): a reference DB
-       of one sequence per core gene of phase 4 (its cluster
+       of one sequence per SEARCH_REF_STRIDE-th core gene of phase 4 and
+       per core gene longer than SEARCH_REF_LONG (its cluster
        representative's AA and mock 3Di, named AF-<name>-F1) against
        phase 4's 2,400-sequence proteome DB with search's default
        options, then `profile` on its m8 (in process: host code).  Requires every reference's
@@ -309,8 +317,8 @@ failure, and no phase is skipped:
        over the patched calls; both modes must have launched.
    9e. Two ranks of `python -m unicore_tpu_torch.parallel.dist_check`
        through `initialize_distributed` (gloo, each rank's kernel on the
-       card, collectives on host copies), started before 9d and joined
-       after it: each scores only its block of an SW batch, all-reduces
+       card, collectives on host copies), started before 8b and joined
+       after 9d: each scores only its block of an SW batch, all-reduces
        the hit count, all-gathers the results and checks both against
        the whole batch.
    9f. The native featurizer on phase 4's 2,400 sequences, bit-identical
@@ -343,7 +351,7 @@ failure, and no phase is skipped:
        rank a RankShardedProstT5 of its tp slice and dp block; they
        draw their parameters on the card from 10a's or 10c's seed):
        10f-i. 10c's layers, batch and seed at (dp, tp) = RANK_MESH over 4
-       ranks, started beside 9d and 9e and joined after 10e: one step
+       ranks, started before 8b and joined after 10e: one step
        against 10c's one-process step at (2, 2) on the logical mesh, to
        10c's tolerances; every rank's replicated leaves bit-identical.
        10f-ii. 24 layers at full width over RANK_TP ranks at (1,
@@ -353,16 +361,22 @@ failure, and no phase is skipped:
 
 Order of the run: phase 5's CPU run (6b's CPU run beside its easy-core;
 then three sides, each in one process: 7c and 6d; tree -T raxml-ng and
-tree -T fasttree; the two other aligners and 7b) starts first, on every
-core but two, and goes on beside phase 1, the checks of phases 2, 2b,
-2c, 3b, 3c and 3d, then 6a, 6e and 2d (in a thread of their own) beside
-phase 5's CUDA run (6b beside its easy-core; then two sides, each in
-one process: raxml-ng, 7c and 6d; the rest and 7b), all on those two,
-and the int16 probe on the others.  Once it has ended, phase 3 and the
-times of phases 3b-3g, phase 4, 7a and 7d run with nothing beside them,
-then 6c, 8a, 8b, 9 and 10 (9e's and 10f-i's ranks beside 9d; 10f-ii
-alone).  Each phase's start and end on
-the script's clock is printed as a "[clock]" line.
+tree -T fasttree; the two other aligners and 7b) and 6e's `config
+--check` start first, on every core but two, and go on beside phase 1
+and the checks of phases 2, 2b, 3c and 3d, on those two; then 6a, the
+checks of 2c and 3b, 6e's reading and 2d (in a thread of their own)
+beside phase 5's CUDA run (6b beside its easy-core; then three sides,
+each in one process: raxml-ng; 7c and 6d; the rest and 7b), on every
+core, and the int16 probe on the others.  Once it has ended, phase 3
+and the times of phases 3b-3g, phase 4, 7a and 7d run with nothing
+beside them, then 6c, 8a, 8b, 9 and 10 (9e's and 10f-i's ranks started
+before 8b, 9e's joined after 9d and 10f-i's after 10e; 10f-ii's started
+after 10b).  Each phase's start and end on the
+script's clock is printed as a "[clock]" line, and at the end a table of
+them, by start, with what ran beside each (critical_path).  The cores
+are a request: where the kernel does not enforce affinity (some
+container kernels report the mask they were given and run every thread
+on every core), the sides share all cores.
 
 Before the last line it prints one JSON object {"kernels": [...]} (per
 kernel mode: launches in phase 4 and 7a, times and bound at (512, 512),
@@ -386,6 +400,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import platform
 import shutil
 import subprocess
 import sys
@@ -398,6 +413,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPES = [(512, 128), (512, 256), (512, 512), (512, 1024), (192, 512), (48, 2048)]
+# phase 2's shapes: SHAPES with fewer pairs at Lt 1,024 and 2,048, the same widths and so the
+# same instances of the kernel's table
+EXACT_SHAPES = [(512, 128), (512, 256), (512, 512), (128, 1024), (192, 512), (16, 2048)]
 MODES = {"gapped_w64": dict(gap_window=64), "gapped_w0": dict(gap_window=0),
          "ungapped": dict(ungapped=True)}
 GAPS = [(100.0, 10.0), (28.0, 3.0)]
@@ -452,9 +470,9 @@ BANDED_WINDOWS = [1, 3, 16, 100, 1024]  # 2b: E windows inside a lane, across la
 # W 256 and 512, timed by the sweep's (512, 2048, 2048, W) batches)
 BANDED_TIMED = (64, 2048, 2048, 256)
 # 2b: the edges of the kernel's table (each band-width class's upper W and one past it), and
-# one batch above the plain route's 128 MB cap (64 pairs here) and the engine's batch_size
+# one batch above the plain route's 128 MB cap (256 pairs here) and the engine's batch_size
 BANDED_CLASS_EDGES = [128, 129, 256, 257, 384, 385, 512, 513, 1024, 1025, 2048, 2049, 4096, 4097]
-BANDED_OVER_CAP = (520, 2048, 2048, 256)
+BANDED_OVER_CAP = (520, 512, 512, 256)  # 272 MB of band
 # 3e's sweep of the kernel's columns a lane (C) per band-width class (its upper W): the
 # engine's batches in the class, (B, Lq, Lt, W), with the cap lifted (phase 4's rescore
 # buckets hold 439-533 pairs at W 256 and 512: scripts/torch_banded_buckets.py), and the C
@@ -490,6 +508,7 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM, FP32 outside the tensor cores (data sheet)
 PHYLO = dict(n=20, L=8192, batch=64, model="JTT+F+I+G", alpha=0.7, p_inv=0.05, seed=5,
              steps=5, cpu_batch=8)  # Adam steps and candidates of the CUDA-vs-CPU checks
 PHYLO_INC = dict(n=64, L=1000, seed=6)  # the incremental NNI path starts at 48 taxa
+ADAM_TIMED_STEPS = 60  # 3c's timed optimize_blens call
 # likelihood tolerances, CUDA against the CPU (those of tests/test_torch_phylo.py)
 LL_RTOL, SITE_ATOL, SITE_RTOL = 1e-5, 1e-4, 1e-3
 BLEN_LL_RTOL, BLEN_ATOL, BLEN_RTOL = 1e-4, 1e-3, 1e-2
@@ -535,13 +554,15 @@ DIRBITS_EDGE_BATCH = (3, 24)
 # or-shift, the best cell)
 DIRBITS_OPS_PER_CELL = {"nw": 20, "sw_bits": 24}
 SEARCH_OPTIONS = "-c 0.8"  # phase 7a/7b: search's default
+SEARCH_REF_STRIDE = 3      # phase 7a: every third core gene of phase 4 a reference ...
+SEARCH_REF_LONG = 1024     # ... and every one longer than this (the banded traceback)
 PARTITION_OPTIONS = "-m JTT+F+I+G -B 1000 -p {}"  # phase 7c: tree's defaults and a partition file
-PARTITION_ADAM_STEPS = 10  # phase 7d: the timed optimize_blens ...
+PARTITION_ADAM_STEPS = 4   # phase 7d: the timed optimize_blens ...
 PROFILED_STEPS = 3         # ... and the profiled one
 # phase 8: ProstT5 at ProtT5-XL's width (models/prostt5.py T5Config())
 PROSTT5_SEED = 20261017
 PROSTT5_PREFIX = 128      # <AA2fold> after the 128 base pieces
-PROSTT5_SPECIES = 10       # 8a: synthetic proteomes of phase 4's seed and size (1,200 proteins) ...
+PROSTT5_SPECIES = 4        # 8a: synthetic proteomes of phase 4's seed and size (480 proteins) ...
 LONG_PROTEIN = 5000        # ... and one protein past the 2,048-residue window: three windows at bucket 2,176
 PROSTT5_BUCKETS = (128, 384, 2176)  # 8a: full batches timed in process
 PROFILE_TOP = 8            # prostt5_profile: kernels listed per bucket
@@ -599,14 +620,43 @@ def clock():
     return time.perf_counter() - _CLOCK[0]
 
 
+_SPANS = []  # (lane, name, start, end) of every span, for critical_path()
+
+
+def record_span(name, t0, t1, lane=None):
+    """Log a phase's start and end on the script's clock and keep them;
+    `lane` names what ran it (default: "main" or "side", by thread)."""
+    lane = lane or ("main" if threading.current_thread() is threading.main_thread() else "side")
+    _SPANS.append((lane, name, t0, t1))
+    log(f"[clock] {name}: {t0:.1f} -> {t1:.1f} s")
+
+
 @contextlib.contextmanager
-def span(name):
+def span(name, lane=None):
     """Log a phase's start and end on the script's clock."""
     t0 = clock()
     try:
         yield
     finally:
-        log(f"[clock] {name}: {t0:.1f} -> {clock():.1f} s")
+        record_span(name, t0, clock(), lane)
+
+
+def critical_path():
+    """The run's spans as a table, by start: lane, start, end, seconds,
+    and the spans of other lanes that ran beside each for a second or
+    more.  Main-lane spans that hold no other are the chain the run's
+    wall time is the sum of; its "wait" spans are where the main lane
+    waited on another (phase 5's CPU run, 6a/6e/2d's thread, the probe)."""
+    spans = sorted(_SPANS, key=lambda x: (x[2], -x[3]))
+    log("[critical path] lane   start     end  seconds  span  | beside (other lanes, >= 1 s of overlap)")
+    for lane, name, t0, t1 in spans:
+        depth = sum(1 for l2, n2, a, b in spans if l2 == lane and name.startswith(n2) and n2 != name
+                    and a <= t0 and t1 <= b)
+        beside = sorted({n2 for l2, n2, a, b in spans if l2 != lane and min(t1, b) - max(t0, a) >= 1.0
+                         and not any(l3 == l2 and n2.startswith(n3) and n3 != n2 and a3 <= a and b <= b3
+                                     for l3, n3, a3, b3 in spans)})
+        log(f"[critical path] {lane:6s} {t0:6.1f}  {t1:6.1f}  {t1 - t0:7.1f}  {'  ' * depth}{name}"
+            + (f"  | {'; '.join(beside)}" if beside else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -822,8 +872,11 @@ def cli_chain(steps, out_dir, chain):
     profiling.dump(os.path.join(out_dir, f"{chain}.counters.json"), {})
 
 
-def run_slice(in_dir, out_dir, home, device=None):
-    """createdb -> cluster -> profile -> tree -n through the CLI."""
+def run_slice(in_dir, out_dir, home, device=None, one_process=False, inference=False):
+    """createdb -> cluster -> profile -> tree -n through the CLI, then with
+    `inference` `tree` again (the skip path: inference alone); each step a
+    subprocess, or with `one_process` all in one (cli_chain), as easy-core
+    runs its stages."""
     db = os.path.join(out_dir, "proteome", "proteome_db")
     steps = [
         ("createdb", ["createdb", in_dir, db, "mock"]),
@@ -833,7 +886,9 @@ def run_slice(in_dir, out_dir, home, device=None):
                      os.path.join(out_dir, "profile")]),
         ("tree", ["tree", db, os.path.join(out_dir, "profile"), os.path.join(out_dir, "tree"), "-n"]),
     ]
-    return run_steps(steps, out_dir, home, device)
+    if inference:
+        steps.append(("tree_inference", ["tree", db, os.path.join(out_dir, "profile"), os.path.join(out_dir, "tree")]))
+    return run_steps(steps, out_dir, home, device, one_process=one_process)
 
 
 def run_easy_core(in_dir, out_dir, home, device, threads, beside, sides):
@@ -1006,6 +1061,12 @@ def host_cpu():
     return f"{model}, {os.cpu_count()} cores, {' '.join(ext) or 'no avx2'}"
 
 
+def _built(mod):
+    """mod.build(), its span on the script's clock in lane "nvcc"."""
+    with span(f"phase 1, nvcc {os.path.basename(mod.SOURCE)}", lane="nvcc"):
+        return mod.build()
+
+
 def phase_env():
     """Phase 1: the card, the versions, the kernel's build; returns the
     context the other phases share."""
@@ -1021,13 +1082,16 @@ def phase_env():
     props = torch.cuda.get_device_properties(0)
     peak_ops = props.multi_processor_count * LANES_PER_SM * float(clock) * 1e6
     log(smi)
+    card_id = subprocess.run(["nvidia-smi", "--query-gpu=uuid,pci.bus_id", "--format=csv,noheader"],
+                             capture_output=True, text=True).stdout.strip()
+    log(f"card {card_id}; kernel {platform.release()}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {props.name}, "
         f"{props.multi_processor_count} SMs, max SM clock {clock} MHz, "
         f"peak scalar rate {peak_ops / 1e12:.2f} Tops/s")
     log(f"host: {host_cpu()}; torch CPU kernels {torch.backends.cpu.get_cpu_capability()}")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
-        builds = [(mod, pool.submit(mod.build)) for mod in (sw_cuda, banded_cuda, dirbits_cuda)]
+        builds = [(mod, pool.submit(_built, mod)) for mod in (sw_cuda, banded_cuda, dirbits_cuda)]
         for mod, fut in builds:
             log(f"[phase 1] kernel built from {os.path.relpath(mod.SOURCE, ROOT)} in {fut.result():.1f} s")
     log(f"[phase 1] the three kernels built in {time.perf_counter() - t0:.1f} s")
@@ -1052,7 +1116,7 @@ def phase_exact(ctx):
     max_err = {"gapped": 0.0, "ungapped": 0.0}
     n_cmp = 0
     t0 = time.perf_counter()
-    for s, (B, L) in enumerate(SHAPES):
+    for s, (B, L) in enumerate(EXACT_SHAPES):
         for bi, bias in enumerate(("off", "on", "clip")):
             args, qc = sw_inputs(ctx["rng"], B, L, bias, ctx["saa_np"], ctx["s3d_np"], ctx["dev"])
             settings = [(mode, kw, go, ge) for mode, kw in MODES.items()
@@ -1337,7 +1401,8 @@ def phase_banded_sweep(ctx, reps=5):
 def phase_times(ctx, shapes=SHAPES, reps=50, plain_reps=2):
     """Phase 3: times per shape and mode, with the engine's settings
     (gap_window 64, bias on), the plain version's over `plain_reps` calls
-    at KERNEL_SHAPE and one elsewhere; returns {(B, L, kind): numbers}."""
+    at KERNEL_SHAPE (time_cuda) and one call elsewhere (once_ms); returns
+    {(B, L, kind): numbers}."""
     from unicore_tpu_torch.ops import sw_cuda
     from unicore_tpu_torch.ops.sw import sw_forward_plain
 
@@ -1349,8 +1414,9 @@ def phase_times(ctx, shapes=SHAPES, reps=50, plain_reps=2):
         cells = cells_of(args)
         for kind, kw in TIMED_MODES.items():
             ms = time_cuda(lambda: sw_cuda.sw_forward_cuda(*args, saa, s3d, qc=qc, **kw), reps)
-            plain_ms = time_cuda(lambda: sw_forward_plain(*args, saa, s3d, qc=qc, **kw),
-                                 plain_reps if (B, L) == KERNEL_SHAPE else 1)
+            def plain():
+                return sw_forward_plain(*args, saa, s3d, qc=qc, **kw)
+            plain_ms = time_cuda(plain, plain_reps) if (B, L) == KERNEL_SHAPE else once_ms(plain)
             bound_ms, ops_ms, bytes_ms = bound_of(ctx, args, qc, kind)
             timing[(B, L, kind)] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1503,14 +1569,31 @@ def start_probe(work, cores):
                              "--json", out], cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             preexec_fn=lambda: os.sched_setaffinity(0, cores))
-    return proc, out
+    return proc, out, watch_exit(proc)
+
+
+def watch_exit(proc):
+    """(start, a thread that waits for `proc`, [its exit]) on the script's
+    clock, for a span of a process that runs beside the main lane."""
+    ended = []
+    watch = threading.Thread(target=lambda: (proc.wait(), ended.append(clock())), daemon=True)
+    watch.start()
+    return clock(), watch, ended
+
+
+def record_exit(name, watched, lane):
+    """The span of a process watched by watch_exit, once it has exited."""
+    t0, watch, ended = watched
+    watch.join()
+    record_span(name, t0, ended[0], lane=lane)
 
 
 def finish_probe(started):
     """The probe's JSON-line row numbers; fails unless every probe built,
     ran and matched numpy."""
-    proc, out = started
+    proc, out, watched = started
     text, _ = proc.communicate(timeout=600)
+    record_exit("int16 probe's process", watched, "probe")
     for line in text.strip().splitlines():
         log(f"[probe] {line}")
     check(proc.returncode == 0 and os.path.exists(out),
@@ -1598,15 +1681,15 @@ def phase_nw(ctx):
     return dict(count_args=dargs, feats=feats)
 
 
-def dirbits_times(ctx, kind, d, plain, kernel, gaps, reps=20, cpu=True):
+def dirbits_times(ctx, kind, d, plain, kernel, gaps, reps=20, cpu=True, profile=True):
     """Times of one direction-bit dispatch on the card's inputs `d`:
     the kernel (CUDA events over `reps` launches after a warm-up), the
-    plain version (one call; the checks ran its ops), the plain version's
-    device-busy time inside one profiled dispatch, with `cpu` the CPU's
-    plain time, and the kernel's bound."""
+    plain version (one call; the checks ran its ops), with `profile` the
+    plain version's device-busy time inside one profiled dispatch, with
+    `cpu` the CPU's plain time, and the kernel's bound."""
     k_ms = time_cuda(lambda: kernel(*d, *gaps), reps)
     ms = once_ms(lambda: plain(*d, *gaps))
-    busy_ms, wall_ms = device_busy_ms(lambda: plain(*d, *gaps))
+    busy_ms, wall_ms = device_busy_ms(lambda: plain(*d, *gaps)) if profile else (None, None)
     cpu_ms = None
     if cpu:
         t = [x.cpu() for x in d]
@@ -1764,9 +1847,10 @@ def log_dirbits_times(what, timing):
     for (Lb, B, dtype), x in timing.items():
         busy = "not measured" if x["busy_ms"] is None else f"{x['busy_ms']:.2f}"
         cpu = "not timed" if x["cpu_ms"] is None else f"{x['cpu_ms']:9.2f}"
+        wall = "" if x["profiled_wall_ms"] is None else f" ({x['profiled_wall_ms']:.2f})"
         log(f"  {Lb:6d} {B:5d} {dtype:5s} | {x['kernel_ms']:9.4f} ({1e3 * x['kernel_ms'] / Lb:.4f}) | "
             f"{x['ms']:10.2f} | {cpu} | "
-            f"{busy} ({x['profiled_wall_ms']:.2f}) | {x['bound_ms']:.4f} ({x['ops_ms']:.4f}, "
+            f"{busy}{wall} | {x['bound_ms']:.4f} ({x['ops_ms']:.4f}, "
             f"{x['bytes_ms']:.4f}) | {100 * x['bound_ms'] / x['kernel_ms']:.2f} %")
 
 
@@ -1789,8 +1873,9 @@ def phase_nw_times(ctx, inputs):
         S, l1, l2 = nw_scores(ctx["rng"], B, Lb, Lb, "rand")
         for dtype in ("int32", "int16"):
             d = [torch.from_numpy(x).to(ctx["dev"]) for x in (S.astype(dtype), l1, l2)]
+            row = dtype == "int32" and (Lb, B) == NW_TIMED[0]  # the JSON line's
             timing[(Lb, B, dtype)] = dirbits_times(ctx, "nw", d, nw_forward_bits, nw_forward_bits_cuda, NW_GAPS[0],
-                                                   cpu=dtype == "int32")
+                                                   cpu=row, profile=row)
     log_dirbits_times("phase 3b", timing)
     B, Lb = NW_TIMED[0][1], NW_TIMED[0][0]
     timing["counts"] = time_cuda(lambda: _count_scores(*inputs["count_args"]), 5)
@@ -1847,6 +1932,67 @@ def float64_loglik(eng, cb, bb):
     return (sites * eng.w.cpu().double()).sum(-1).tolist()
 
 
+class OpenMPTeam:
+    """Code run in every thread of the calling thread's OpenMP team, the
+    team torch's intra-op work (at::parallel_for) runs on: a parallel
+    region of torch's own libgomp, entered through ctypes."""
+
+    def __init__(self):
+        import ctypes
+
+        import torch
+
+        torch.ones(2).sum()  # torch's libraries loaded
+        maps = [line.split()[-1] for line in open("/proc/self/maps") if "libgomp" in line]
+        self.lib = maps[0] if maps else "libgomp.so.1"
+        self.gomp = ctypes.CDLL(self.lib)
+        self.libm = ctypes.CDLL("libm.so.6")
+        self.libc = ctypes.CDLL("libc.so.6")
+        self.callback = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
+        self.env_words = ctypes.c_uint32 * 8
+
+    def each(self, fn):
+        """{thread number: fn()} over the team."""
+        out, lock = {}, threading.Lock()
+
+        def body(_):
+            r = fn()
+            with lock:
+                out[self.gomp.omp_get_thread_num()] = r
+
+        self.gomp.GOMP_parallel(self.callback(body), None, 0, 0)
+        return dict(sorted(out.items()))
+
+    def workers(self):
+        """{thread: (tid, core, MXCSR rounding, FTZ, DAZ)} of the team."""
+        def one():
+            env = self.env_words()
+            self.libm.fegetenv(env)
+            m = env[7]  # glibc's x86-64 fenv_t: the 28-byte x87 environment, then __mxcsr
+            return (threading.get_native_id(), self.libc.sched_getcpu(),
+                    ("nearest", "down", "up", "zero")[(m >> 13) & 3], bool(m & 0x8000), bool(m & 0x40))
+        return self.each(one)
+
+    def pin(self, cores):
+        """Pin the calling thread and every thread of its team to `cores`."""
+        os.sched_setaffinity(0, cores)
+        self.each(lambda: os.sched_setaffinity(0, cores))
+
+
+def cpu_state(team=None):
+    """One line: what torch's CPU products depend on in this process."""
+    import torch
+
+    line = (f"matmul precision {torch.get_float32_matmul_precision()}, oneDNN matmul "
+            f"{torch.backends.mkldnn.matmul.fp32_precision}, torch threads {torch.get_num_threads()} "
+            f"(inter-op {torch.get_num_interop_threads()}), cores {sorted(os.sched_getaffinity(0))}")
+    if team is not None:
+        w = team.workers()
+        line += "; OpenMP team (thread: core rounding FTZ DAZ) " + ", ".join(
+            f"{k}: {core} {rnd} {int(ftz)} {int(daz)}" for k, (_, core, rnd, ftz, daz) in w.items())
+    return line
+
+
 @contextlib.contextmanager
 def tf32_requested():
     """`torch.set_float32_matmul_precision("high")` inside the block, so the
@@ -1893,6 +2039,7 @@ def phase_phylo(ctx):
         # candidates and steps than the timed calls
         err = {}
         k = PHYLO["cpu_batch"]
+        log(f"[phase 3c] the CPU side's state at entry: {cpu_state(OpenMPTeam())}")
         ll_batch = (cpu.loglik_batch(cb[:k], bb[:k]), gpu.loglik_batch(cb[:k], bb[:k]))
         err["loglik_batch"] = _rel_err(*ll_batch)
         err["site_loglik_batch"] = _site_err(cpu.site_loglik_batch(cb[:k], bb[:k]),
@@ -1929,12 +2076,16 @@ def phase_phylo(ctx):
                 one = cpu.loglik_batch(cb[:k], bb[:k])
             finally:
                 torch.set_num_threads(threads)
-            log(f"  loglik_batch: torch threads {threads}, cores {sorted(os.sched_getaffinity(0))}, "
-                f"matmul precision {torch.get_float32_matmul_precision()}")
+            alone = [float(cpu.loglik_batch(cb[i:i + 1], bb[i:i + 1])[0]) for i in range(k)]
+            # five more batches: which candidates stray each time, if any
+            stray = [[i for i, (x, y) in enumerate(zip(cpu.loglik_batch(cb[:k], bb[:k]), f64))
+                      if abs(x - y) > 1e-6 * abs(y)] for _ in range(5)]
+            log(f"  loglik_batch: {cpu_state(OpenMPTeam())}; candidates past 1e-6 of float64 in five more "
+                f"batches: {stray}")
             for i, (a, g) in enumerate(zip(*ll_batch)):
                 log(f"  loglik_batch candidate {i}: CPU {float(a)!r} (again {float(again[i])!r}, one thread "
-                    f"{float(one[i])!r}), CUDA {float(g)!r}, float64 on the CPU {f64[i]!r}, relative error "
-                    f"{abs(float(g) - float(a)) / abs(float(a)):.3g}")
+                    f"{float(one[i])!r}, alone {alone[i]!r}), CUDA {float(g)!r}, float64 on the CPU {f64[i]!r}, "
+                    f"relative error {abs(float(g) - float(a)) / abs(float(a)):.3g}")
         for name, e in err.items():
             lim = 1.0 if "site" in name else (BLEN_LL_RTOL if "optimize" in name else LL_RTOL)
             check(e <= lim, f"likelihood on CUDA != CPU: {name} error {e:.3g} > {lim}")
@@ -1963,11 +2114,11 @@ def phase_phylo_times(ctx, st):
         nm_ms = time_cuda(lambda: gpu.loglik_nni_moves(c, b, moves), 3)
         walls = {}
         gpu.optimize_blens(c, b, steps=10)  # warm-up
-        for steps in (10, 150):
+        for steps in (10, ADAM_TIMED_STEPS):
             w0 = time.perf_counter()
             gpu.optimize_blens(c, b, steps=steps)
             walls[steps] = (time.perf_counter() - w0) * 1e3
-        step_ms = (walls[150] - walls[10]) / 140
+        step_ms = (walls[ADAM_TIMED_STEPS] - walls[10]) / (ADAM_TIMED_STEPS - 10)
         busy_ms, prof_ms = device_busy_ms(lambda: gpu.optimize_blens(c, b, steps=10))
         # the bound of one loglik_batch call: per candidate and internal node
         # two products (P, C*20) x per-category (20, 20) blocks, at least
@@ -1983,7 +2134,8 @@ def phase_phylo_times(ctx, st):
             f"bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP at FP32 peak, executed block-diagonally: "
             f"x{C}; {nbytes / 1e6:.2f} MB); site_loglik_batch {sb_ms:.2f} ms; loglik_nni_moves "
             f"({len(moves)} moves) {nm_ms:.2f} ms")
-        log(f"  optimize_blens: {walls[150]:.1f} ms for 150 Adam steps, {step_ms:.3f} ms per step; "
+        log(f"  optimize_blens: {walls[ADAM_TIMED_STEPS]:.1f} ms for {ADAM_TIMED_STEPS} Adam steps, "
+            f"{step_ms:.3f} ms per step (their time less a 10-step call's); "
             f"profiled 10-step call {prof_ms:.1f} ms, per step {busy}")
     return dict(loglik_batch_ms=lb_ms, loglik_batch_cpu_ms=lb_cpu_ms, bound_ms=bound_ms,
                 adam_step_ms=step_ms, busy_ms=busy_ms, profiled_ms=prof_ms)
@@ -2028,7 +2180,8 @@ def phase_sw_bits_times(ctx, inputs):
     from unicore_tpu_torch.ops.dirbits_cuda import sw_forward_bits_cuda
     from unicore_tpu_torch.ops.sw_bits import sw_forward_bits
 
-    timing = {(Lb, B, "int16"): dirbits_times(ctx, "sw_bits", d, sw_forward_bits, sw_forward_bits_cuda, SWB_GAPS[0])
+    timing = {(Lb, B, "int16"): dirbits_times(ctx, "sw_bits", d, sw_forward_bits, sw_forward_bits_cuda, SWB_GAPS[0],
+                                              cpu=(Lb, B) == SWB_TIMED[0], profile=(Lb, B) == SWB_TIMED[0])
               for (Lb, B), d in inputs.items()}
     log_dirbits_times("phase 3d", timing)
     return timing
@@ -2057,12 +2210,13 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
     log(f"[phase 4] {len(lengths)} sequences ({n_species} x {per_species}), median length "
         f"{int(np.median(lengths))}, {100 * np.mean(lengths > 1024):.1f}% longer than 1024")
     out_dir = os.path.join(work, "main")
-    times, counters = run_slice(in_dir, out_dir, os.path.join(work, "home_main"))
+    times, counters = run_slice(in_dir, out_dir, os.path.join(work, "home_main"), one_process=True, inference=True)
     c, t = counters["cluster"], counters["tree"]
     launches = kernel_launches(c)
     nw = dirbits_launches(counters)
     purity, n_clusters = synthetic.cluster_purity(out_dir, labels)
     genes, width, n_parts = check_tree(out_dir, n_species)
+    log("  the CLI calls' own seconds, one after another in one process (cli_chain)")
     for stage in ("createdb", "cluster", "profile", "tree"):
         log(f"  {stage:8s} {times[stage]:8.2f} s")
     log(f"  sequences {int(c['cluster.sequences'])}, candidate pairs {int(c['cluster.candidate_pairs'])}, "
@@ -2095,7 +2249,7 @@ def phase_slice(work, n_species=N_SPECIES, per_species=PER_SPECIES):
     check(sum(shapes["nw"].values()) == nw["nw"], f"phase 4: the launch shapes count {shapes['nw']}, not {nw['nw']}")
     launches.update(nw)
     launches["dirbits_shapes"] = shapes
-    return launches, phase_inference(work, out_dir, n_species)
+    return launches, phase_inference(out_dir, n_species, times["tree_inference"], counters["tree_inference"])
 
 
 def kernel_launches(counters):
@@ -2122,18 +2276,14 @@ def check_banded_route(counters, launches, what):
     check(n == k, f"{what}: {n} banded batches, {k} banded kernel launches")
 
 
-def phase_inference(work, out_dir, n_species):
-    """Phase 4, second part: `tree` with its defaults on phase 4's output
-    directory (the skip path: inference alone), and the checks of its
-    iqtree outputs; returns its counters."""
+def phase_inference(out_dir, n_species, seconds, c):
+    """Phase 4, second part: the checks of `tree` with its defaults on
+    phase 4's output directory (the skip path: inference alone; its
+    seconds and counters `c`, run_slice's last step); returns c."""
     from unicore_tpu_torch import synthetic
     from unicore_tpu_torch.phylo.newick import bipartitions, parse_newick, rf_distance
 
-    db = os.path.join(out_dir, "proteome", "proteome_db")
     tree_dir = os.path.join(out_dir, "tree")
-    times, counters = run_steps([("tree_inference", ["tree", db, os.path.join(out_dir, "profile"), tree_dir])],
-                                out_dir, os.path.join(work, "home_main"))
-    c = counters["tree_inference"]
     tree = parse_newick(open(os.path.join(tree_dir, "iqtree.treefile")).read())
     species = sorted(x.name for x in tree.leaves())
     check(species == [f"sp{i:02d}" for i in range(n_species)], f"iqtree.treefile leaves: {species}")
@@ -2146,7 +2296,7 @@ def phase_inference(work, out_dir, n_species):
     check(np.isfinite(lnl), f"lnL {lnl}")
     check(open(os.path.join(tree_dir, "tree.chk")).read() == "1", "tree.chk does not read 1")
     rf = rf_distance(tree, synthetic.species_tree(n_species, seed=7)) / (2 * (n_species - 3))
-    log(f"  tree inference (skip path, iqtree -m JTT+F+I+G -B 1000) {times['tree_inference']:8.2f} s: "
+    log(f"  tree inference (skip path, iqtree -m JTT+F+I+G -B 1000) {seconds:8.2f} s: "
         f"stage.tree.inference.seconds {c['stage.tree.inference.seconds']:.2f}, phylo.seconds "
         f"{c['phylo.seconds']:.2f}, phylo.patterns {int(c['phylo.patterns'])}, phylo.blen_steps "
         f"{int(c['phylo.blen_steps'])}, phylo.candidates {int(c['phylo.candidates'])}; lnL {lnl:.4f}, "
@@ -2159,17 +2309,24 @@ def phase_inference(work, out_dir, n_species):
 def phase_search(ctx, work):
     """Phase 7a: `search` at phase 4's full width on CUDA, as a CLI
     subprocess with a fresh HOME (the E-value fit runs on the kernel): a
-    reference DB of one sequence per core gene of phase 4 (write_reference_db)
-    against phase 4's 2,400-sequence proteome DB, default options, then
+    reference DB of one sequence per SEARCH_REF_STRIDE-th core gene of
+    phase 4 and per core gene longer than SEARCH_REF_LONG
+    (write_reference_db) against phase 4's 2,400-sequence proteome DB,
+    default options, then
     `profile` on its m8.  Requires every reference's self hit with fident
     1.000, mismatch 0 and gapopen 0, the m8 grouped by reference, both
     kernel modes launched, search.chk "1", and the banded traceback taken
     where a reference is longer than 1,024.  Returns the launches."""
     import itertools
 
+    from unicore_tpu_torch.io.seqdb import SeqDB
+
     out_dir = os.path.join(work, "main")
     db = os.path.join(out_dir, "proteome", "proteome_db")
-    genes4 = core_genes(out_dir)
+    seqdb = SeqDB.read(db, require_ss=True)
+    idx = seqdb.name_to_idx()
+    genes4 = [g for k, g in enumerate(core_genes(out_dir))
+              if k % SEARCH_REF_STRIDE == 0 or len(seqdb.aa_seqs[idx[g]]) > SEARCH_REF_LONG]
     s_dir = os.path.join(work, "search7a")
     ref = os.path.join(s_dir, "ref", "ref_db")
     lengths = write_reference_db(db, genes4, ref)
@@ -2215,7 +2372,7 @@ def phase_search(ctx, work):
         f"{int(c.get('traceback.banded', 0))}, full Gotoh {int(c.get('traceback.full', 0))}; kernel launches "
         f"{launches}; every self hit at fident 1.000 ({ctx['smi']})")
     log(f"  profile on search.m8 (in process): {times['search_profile']:.2f} s, {len(genes7)} core genes, "
-        f"{len(set(genes7) & set(genes4))} of them among phase 4's {len(genes4)}")
+        f"{len(set(genes7) & set(genes4))} of them among the {len(genes4)} references")
     return launches
 
 
@@ -2414,15 +2571,15 @@ def cross_sides(work, x_dir, device, trees):
     """The steps on phase 5's easy-core output `x_dir`, on one device, as
     side-by-side lists (run_easy_core's `sides`): on the CPU three, 7c
     (the partitioned engine on every pattern) and 6d, tree -T raxml-ng
-    and tree -T fasttree, the two other aligners and 7b; on CUDA two,
-    raxml-ng, 7c and 6d beside the rest."""
+    and tree -T fasttree, the two other aligners and 7b; on CUDA three,
+    raxml-ng, 7c and 6d, and the rest."""
     p7c = partition_tree_steps(work, x_dir, device)
     p6d = genetree_steps(work, x_dir, device)
     p7b = easy_search_steps(work, x_dir, device)
     t = trees
     if device == "cpu":
         return [p7c + p6d, [t["tree_raxml"], t["tree_fasttree"]], [t["tree_mafft"], t["tree_linsi"], *p7b]]
-    return [[t["tree_raxml"], *p7c, *p6d], [t["tree_mafft"], t["tree_linsi"], t["tree_fasttree"], *p7b]]
+    return [[t["tree_raxml"]], [*p7c, *p6d], [t["tree_mafft"], t["tree_linsi"], t["tree_fasttree"], *p7b]]
 
 
 def check_gene_trees(root, genes, supported=True):
@@ -2482,39 +2639,62 @@ def phase_cascade(ctx, work):
     check(launches["gapped"] > 0 and launches["ungapped"] > 0, f"the cascade did not launch both modes: {launches}")
     check_banded_route(c, {f"banded.{k}": v for k, v in banded_launches.items()}, "6a")
     check(purity >= PURITY_FLOOR, f"cascade purity {purity:.4f} < {PURITY_FLOOR}")
-    log(f"[clock] phase 6a: {started:.1f} -> {clock():.1f} s")
+    record_span("phase 6a", started, clock())
     return dict(seconds=seconds, launches=launches, purity=purity, clusters=n_clusters)
 
 
-def phase_cascade_and_config(ctx, work):
-    """6a, then 6e, then 2d (the side thread beside phase 5's CUDA run);
-    returns 2d's errors."""
+def phase_side(ctx, work, config):
+    """The side thread beside phase 5's CUDA run: 6a, the checks of 2c and
+    3b, 6e (`config`, started with the run) and 2d; returns 2c's and 2d's
+    errors and 3b's inputs of phase_nw_times."""
     phase_cascade(ctx, work)
+    with span("phase 2c"):
+        max_err = phase_dirbits_exact(ctx)
+    with span("phase 3b, checks"):
+        nw = phase_nw(ctx)
     with span("phase 6e"):
-        phase_config(ctx, work)
+        finish_config(ctx, config)
     with span("phase 2d"):
-        return phase_i16_exact(ctx)
+        max_err.update(phase_i16_exact(ctx))
+    return max_err, nw
 
 
-def phase_config(ctx, work):
-    """Phase 6e: `config --check` on the card."""
-    import torch
-
+def start_config(work, cores):
+    """Phase 6e, start: `config --check` on the card with a fresh HOME, a
+    process of its own on `cores`, registered in _RUNNING; returns (the
+    process, watch_exit's record of it)."""
     env = dict(os.environ, HOME=os.path.join(work, "home_config"),
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("UNICORE_TPU_TORCH_DEVICE", None)
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "unicore_tpu_torch", "config", "--check"], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    check(res.returncode == 0, f"config --check exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
-    lines = res.stdout.splitlines()
-    check("  cuda available: True, devices: 1, engines run on: cuda" in lines, f"config --check: {res.stdout}")
-    check(f"    cuda:0 {torch.cuda.get_device_name(0)}" in lines, f"config --check names no card: {res.stdout}")
+    with _RUNNING_LOCK:
+        check(not _STOPPED.is_set(), "6e: the run is stopping")
+        proc = subprocess.Popen([sys.executable, "-m", "unicore_tpu_torch", "config", "--check"], cwd=ROOT,
+                                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                preexec_fn=lambda: os.sched_setaffinity(0, cores))
+        _RUNNING.add(proc)
+    return proc, watch_exit(proc)
+
+
+def finish_config(ctx, started):
+    """Phase 6e, end: exit 0, CUDA with one device and the card's name,
+    every engine ok but mmseqs."""
+    import torch
+
+    proc, watched = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        with _RUNNING_LOCK:
+            _RUNNING.discard(proc)
+    record_exit("phase 6e, config --check's process", watched, "config")
+    check(proc.returncode == 0, f"config --check exited {proc.returncode}:\n{out[-2000:]}\n{err[-2000:]}")
+    lines = out.splitlines()
+    check("  cuda available: True, devices: 1, engines run on: cuda" in lines, f"config --check: {out}")
+    check(f"    cuda:0 {torch.cuda.get_device_name(0)}" in lines, f"config --check names no card: {out}")
     for name in CHECKABLE:
         check(any(line.startswith(f"  {name}: ok (") for line in lines), f"config --check: {name} not ok")
     check("  mmseqs: no" in lines, "config --check: mmseqs not reported 'no'")
-    log(f"[phase 6e] config --check on CUDA: exit 0 in {seconds:.2f} s ({ctx['smi']}); "
+    log(f"[phase 6e] config --check on CUDA: exit 0 ({ctx['smi']}); "
         + "; ".join(line.strip() for line in lines if line.startswith("  ")))
 
 
@@ -2601,19 +2781,10 @@ def solo_infer(msa_path, out_json):
     profiling.dump(os.environ["UNICORE_TPU_TORCH_COUNTERS"], {})
 
 
-def phase_genetree(ctx, work):
-    """Phase 6c: gene-tree with its defaults on GENETREE_GENES core genes
-    of phase 4's output, the first two (in name order) to share a (taxa,
-    pattern bucket) group, and that group's lockstep inference (fasttree
-    schedule, -gamma, in process) against a solo inference of each gene
-    (one process each).  The solo runs and the lockstep run go on beside
-    gene-tree, on cores of their own; a mismatch prints both trees."""
-    from unicore_tpu_torch.io.fasta import read_fasta
-    from unicore_tpu_torch.phylo.engine import TreeEngine
-    from unicore_tpu_torch.phylo.newick import parse_newick, rf_distance
-    from unicore_tpu_torch.runtime import logging as msg
-
-    out_dir = os.path.join(work, "main")
+def lockstep_group(out_dir, what):
+    """The first two core genes of `out_dir` (in name order) to share a
+    (taxa, pattern bucket) lockstep group: (group, genes, {gene: key},
+    their filtered MSA files)."""
     tree_dir = os.path.join(out_dir, "tree")
     genes = core_genes(out_dir)
     keys = {g: gene_key(os.path.join(tree_dir, "fasta", g, f"{g}.fa.filtered")) for g in genes}
@@ -2621,43 +2792,80 @@ def phase_genetree(ctx, work):
     for g in genes:  # in name order: the first group to reach two genes is the one taken
         groups.setdefault(keys[g][:2], []).append(g)
     first = next((k for k, v in groups.items() if len(v) >= 2), None)
-    check(first is not None, f"no two of phase 4's {len(genes)} core genes share a lockstep group")
+    check(first is not None, f"no two of {what}'s {len(genes)} core genes share a lockstep group")
     grouped = groups[first][:2]
-    picked = grouped[:GENETREE_GENES]
+    return first, grouped, keys, [os.path.join(tree_dir, "fasta", g, f"{g}.fa.filtered") for g in grouped]
+
+
+def lockstep_infer(msa_paths, out_json):
+    """TreeEngine("fasttree").infer_batched(-gamma) of one lockstep
+    group's gene MSAs, each gene's tree, lnL and pattern count and the
+    call's seconds written to `out_json` (6c's lockstep side, run as its
+    own process beside gene-tree)."""
+    from unicore_tpu_torch.io.fasta import read_fasta
+    from unicore_tpu_torch.phylo.engine import TreeEngine
+    from unicore_tpu_torch.runtime import logging as msg
+    from unicore_tpu_torch.runtime import profiling
+
+    msg.set_verbosity(2)
+    t0 = time.perf_counter()
+    res = TreeEngine("fasttree").infer_batched([read_fasta(m) for m in msa_paths], options="-gamma")
+    seconds = time.perf_counter() - t0
+    with open(out_json, "w") as f:
+        json.dump({"seconds": seconds, "genes": [{"newick": t.to_newick(), "lnL": ll, "n_patterns": info["n_patterns"]}
+                                                 for t, ll, info in res]}, f)
+    profiling.dump(os.environ["UNICORE_TPU_TORCH_COUNTERS"], {})
+
+
+def phase_genetree(ctx, work):
+    """Phase 6c: gene-tree with its defaults on GENETREE_GENES core genes
+    of phase 4's output, the first two (in name order) to share a (taxa,
+    pattern bucket) group, and the lockstep inference (fasttree schedule,
+    -gamma, a process of its own) of such a group of phase 5's CUDA
+    output (5 taxa) against a solo inference of
+    each gene (one process each).  gene-tree runs in this process (the
+    CLI's entry, cli_chain), the solo runs and the lockstep run beside it,
+    on cores of their own; a mismatch prints both trees."""
+    from unicore_tpu_torch.phylo.newick import parse_newick, rf_distance
+
+    out_dir = os.path.join(work, "main")
+    tree_dir = os.path.join(out_dir, "tree")
+    first, grouped4, keys4, msa_files4 = lockstep_group(out_dir, "phase 4")
+    picked = grouped4[:GENETREE_GENES]
     names = os.path.join(work, "genetree_names.txt")
     with open(names, "w") as f:
         f.write("".join(g + "\n" for g in picked))
     keep = os.path.join(work, "solo")
     os.makedirs(keep, exist_ok=True)
-    msa_files = [os.path.join(tree_dir, "fasta", g, f"{g}.fa.filtered") for g in grouped]
+    lock_group, grouped, keys, msa_files = lockstep_group(os.path.join(work, "x_cuda"), "phase 5")
     cores = sorted(os.sched_getaffinity(0))
     timed, others = set(cores[:2]), set(cores[2:]) or set(cores)
-    solo = [(f"solo_{g}", ["-c", f"import chip_smoke as c; c.solo_infer({m!r}, "
-                                  f"{os.path.join(keep, g + '.solo.json')!r})"]) for g, m in zip(grouped, msa_files)]
-    with ThreadPoolExecutor(1 + len(solo)) as pool:
-        gene_tree = pool.submit(_on_cores, timed, run_steps, [("gene-tree", ["gene-tree", tree_dir, "--name", names])],
-                                out_dir, os.path.join(work, "home_main"))
-        solos = [pool.submit(_on_cores, others, run_steps, [step], os.path.join(work, "solo"),
-                             os.path.join(work, "home_main")) for step in solo]
+    lock_json = os.path.join(keep, "lockstep.json")
+    sides = [("lockstep", ["-c", f"import chip_smoke as c; c.lockstep_infer({msa_files!r}, {lock_json!r})"])]
+    sides += [(f"solo_{g}", ["-c", f"import chip_smoke as c; c.solo_infer({m!r}, "
+                                   f"{os.path.join(keep, g + '.solo.json')!r})"]) for g, m in zip(grouped, msa_files)]
+    with ThreadPoolExecutor(len(sides)) as pool:
+        side_runs = [pool.submit(_on_cores, others, run_steps, [step], keep, os.path.join(work, "home_main"))
+                     for step in sides]
         every_core = os.sched_getaffinity(0)
-        os.sched_setaffinity(0, others)
+        os.sched_setaffinity(0, timed)
         try:
-            msg.set_verbosity(2)
-            t0 = time.perf_counter()
-            batched = TreeEngine("fasttree").infer_batched([read_fasta(m) for m in msa_files], options="-gamma")
-            t_batched = time.perf_counter() - t0
+            cli_chain([("gene-tree", ["gene-tree", tree_dir, "--name", names])], out_dir, "genetree_chain")
         finally:
             os.sched_setaffinity(0, every_core)
-        for f in solos:
+        for f in side_runs:
             f.result()
-        times, counters = gene_tree.result()
-    c = counters["gene-tree"]
+    times = json.load(open(os.path.join(out_dir, "genetree_chain.times.json")))
+    c = json.load(open(os.path.join(out_dir, "gene-tree.counters.json")))
+    lock = json.load(open(lock_json))
+    batched = [(parse_newick(x["newick"]), x["lnL"], x) for x in lock["genes"]]
     reports = check_gene_trees(tree_dir, picked)
     check(int(c["phylo.genes"]) == len(picked), f"gene-tree inferred {c['phylo.genes']} genes")
     per_gene = times["gene-tree"] / len(picked)
     log(f"[phase 6c] gene-tree (iqtree -m JTT+F+I+G -B 1000) on {len(picked)} core genes of phase 4 "
-        f"({', '.join(f'{g}: {keys[g][0]} taxa, {keys[g][2]} patterns' for g in picked)}; lockstep group "
-        f"{first} holds {grouped}): {times['gene-tree']:.2f} s of subprocess wall, {per_gene:.2f} s per gene "
+        f"({', '.join(f'{g}: {keys4[g][0]} taxa, {keys4[g][2]} patterns' for g in picked)}; lockstep group "
+        f"{first} holds {grouped4}): {times['gene-tree']:.2f} s of the CLI call in this process, {per_gene:.2f} s "
+        f"per gene "
         f"({ctx['smi']}; beside the lockstep check on other cores); phylo.seconds {c['phylo.seconds']:.2f}, "
         f"groups {int(c['phylo.gene_groups'])}, Adam steps {int(c['phylo.blen_steps'])} "
         f"({c['phylo.blen_steps'] / len(picked):.0f} per gene), topologies scored {int(c['phylo.candidates'])}; "
@@ -2666,17 +2874,18 @@ def phase_genetree(ctx, work):
     for g, (bt, bll, binfo) in zip(grouped, batched):
         s = json.load(open(os.path.join(keep, g + ".solo.json")))
         rf = rf_distance(bt, parse_newick(s["newick"]))
-        a, b = tree_edges(s["newick"]), tree_edges(bt.to_newick())
+        a, b = tree_edges(s["newick"]), tree_edges(binfo["newick"])
         loose = {k: (a.get(k) or b.get(k))[0] for k in set(a) ^ set(b)}
         log(f"  lockstep vs solo (fasttree -gamma, CUDA) {g}: RF {rf} (splits in one tree only, with their "
             f"branch lengths: {({'+'.join(sorted(k)): v for k, v in loose.items()})}), lnL {bll:.4f} vs "
             f"{s['lnL']:.4f}, n_patterns {binfo['n_patterns']} vs {s['n_patterns']}")
         if any(v > RESOLVED for v in loose.values()) or abs(bll - s["lnL"]) > SOLO_LL_RTOL * abs(s["lnL"]) \
                 or not binfo["n_patterns"] == s["n_patterns"] == keys[g][2]:
-            bad.append(f"{g}: lockstep {bt.to_newick()} solo {s['newick']}")
-    log(f"  lockstep inference of the group: {t_batched:.2f} s ({ctx['smi']})")
+            bad.append(f"{g}: lockstep {binfo['newick']} solo {s['newick']}")
+    log(f"  lockstep inference of phase 5's group {lock_group} ({', '.join(grouped)}), a process of its own: "
+        f"{lock['seconds']:.2f} s ({ctx['smi']})")
     check(not bad, "6c: lockstep and solo inference differ: " + "; ".join(bad))
-    phase6_op_times(ctx, msa_files)
+    phase6_op_times(ctx, msa_files4)
     return dict(seconds=times["gene-tree"], per_gene=per_gene)
 
 
@@ -3312,11 +3521,11 @@ def phase_native(ctx, work):
     return {k: v[0] for k, v in times.items()}
 
 
-def phase_multi_device(ctx, work, phylo):
+def phase_multi_device(ctx, work, phylo, dist_ranks):
     """Phase 9: 9a-9c and 9d on a logical mesh of LOGICAL_SHARDS shards of
-    the card, 9e's ranks started before 9d and joined after it, then 9f;
-    10f-i's ranks are started beside 9d too (phase 10 joins them).
-    Returns 9a's numbers with 9d's sharded launches, and 10f-i's ranks."""
+    the card, 9e's ranks (`dist_ranks`, started before 8b) joined after
+    9d, then 9f.
+    Returns 9a's numbers with 9d's sharded launches."""
     mesh = logical_mesh(ctx["dev"])
     with span("phase 9a"):
         row = phase_sharded_sw(ctx, mesh)
@@ -3324,15 +3533,13 @@ def phase_multi_device(ctx, work, phylo):
         phase_sharded_banded_nw(ctx, mesh)
     with span("phase 9c"):
         phase_sharded_phylo(ctx, phylo, mesh)
-    ranks = start_dist_check()
-    cross_ranks = start_rank_cross(work)
     with span("phase 9d"):
         row["launches"] = phase_sharded_engines(ctx, work, mesh)
     with span("phase 9e"):
-        finish_dist_check(ranks)
+        finish_dist_check(dist_ranks)
     with span("phase 9f"):
         phase_native(ctx, work)
-    return row, cross_ranks
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3668,20 +3875,24 @@ def rank_numbers(line):
     return dict(f.split("=", 1) for f in line.split() if "=" in f)
 
 
-def phase_rank_tp(ctx, work, losses_10a):
-    """Phase 10f-ii: ProtT5-XL's full width (24 layers) over RANK_TP gloo
-    ranks of this card at (dp, tp) = (1, RANK_TP), each drawing 10a's
+def start_rank_tp(work):
+    """Phase 10f-ii, start: ProtT5-XL's full width (24 layers) over RANK_TP
+    gloo ranks of this card at (dp, tp) = (1, RANK_TP), each drawing 10a's
     state from TRAIN_SEED and keeping its slices, RANK_STEPS Adam steps
-    on 10a's batch: the first loss within LOSS_RTOL of 10a's, every loss
-    finite, the last below the first.  Prints each rank's ms per step
-    after the first and its peak memory: RANK_TP processes sharing one
-    card, their collectives through host copies over gloo, not the speed
-    of several cards."""
+    on 10a's batch."""
     B, L = TRAIN_BATCH
     batch = write_batch(os.path.join(work, "rank_tp_batch.npz"), *train_batch(B, L, TRAIN_SEED))
     args = ["--train", f"1x{RANK_TP}", "--width", "full", "--layers", 24, "--steps", RANK_STEPS,
             "--lr", TRAIN_LR, "--seed", TRAIN_SEED, "--batch", batch]
-    started = start_ranks(RANK_TP, args, "10f-ii")
+    return start_ranks(RANK_TP, args, "10f-ii")
+
+
+def finish_rank_tp(ctx, started, losses_10a):
+    """Phase 10f-ii, end: the first loss within LOSS_RTOL of 10a's, every
+    loss finite, the last below the first.  Prints each rank's ms per
+    step after the first and its peak memory: RANK_TP processes sharing
+    one card, their collectives through host copies over gloo, not the
+    speed of several cards."""
     lines = finish_ranks(started, "10f-ii", timeout=600)
     nums = [rank_numbers(line) for line in lines]
     losses = [float(x) for x in nums[0]["loss"].split(",")]
@@ -3702,12 +3913,14 @@ def phase_rank_tp(ctx, work, losses_10a):
 def phase_training(ctx, work, cross_ranks):
     """Phase 10: 10a and 10b (phase_train), 10c, the port's dry run
     `graft_entry.dryrun_multichip(4)` on a logical mesh of the card (10d),
-    then 10e, one after another, 10f-i (`cross_ranks`, started beside 9d,
-    against 10c), then 10f-ii alone."""
+    then 10e, one after another, 10f-i (`cross_ranks`, started before 8b,
+    against 10c), then 10f-ii (its ranks started after 10b, beside
+    10c-10f-i)."""
     from unicore_tpu_torch import graft_entry
 
     with span("phase 10a, 10b"):
         losses_10a = phase_train(ctx)
+    rank_tp = start_rank_tp(work)
     with span("phase 10c"):
         ref = phase_train_cross(ctx)
     with span("phase 10d"):
@@ -3719,7 +3932,7 @@ def phase_training(ctx, work, cross_ranks):
     with span("phase 10f-i"):
         finish_rank_cross(cross_ranks, ref)
     with span("phase 10f-ii"):
-        phase_rank_tp(ctx, work, losses_10a)
+        finish_rank_tp(ctx, rank_tp, losses_10a)
 
 
 def phase6_op_times(ctx, msa_files):
@@ -3814,10 +4027,11 @@ def phase_crosscheck(ctx, work, small, cpu_run, t0):
                                                   cascade_steps(work, "cuda"),
                                                   lambda trees: cross_sides(work, x_cuda, "cuda", trees))
     fg_done = clock()
-    (cpu_times, cpu_counters), cpu_end = cpu_run.result()
+    with span("wait: phase 5's CPU run"):
+        (cpu_times, cpu_counters), cpu_end = cpu_run.result()
     log(f"[phase 5] the card's cores ended their work at {fg_done:.1f} s; the CPU run ended at {cpu_end:.1f} s "
         f"({ctx['smi']})")
-    log(f"[clock] phase 5, CPU run (with 6b, 6d, 7b and 7c): {t0 - _CLOCK[0]:.1f} -> {cpu_end:.1f} s")
+    record_span("phase 5, CPU run (with 6b, 6d, 7b and 7c)", t0 - _CLOCK[0], cpu_end, lane="cpu")
     a, b = read_files(os.path.join(work, "x_cpu")), read_files(os.path.join(work, "x_cuda"))
     n_inf = check_same_files(a, b)
     for want in ("cluster/clust.tsv", "tree/combined.fasta", "tree/iqtree.treefile", "tree_mafft/combined.fasta",
@@ -3849,11 +4063,13 @@ def phase_crosscheck(ctx, work, small, cpu_run, t0):
 
 
 def checks_beside_cpu_run(work):
-    """Phase 1, the checks of phases 2, 2b, 2c, 3b, 3c and 3d, then 6a, 6e
-    and 2d (in a thread of their own) beside phase 5's CUDA run (with 6b,
-    6d, 7b and 7c), on two cores, while phase 5's CPU run (a cross-check,
-    timed by nothing) goes on on the others from the start, and the int16
-    probe after it, from 6a on.  Returns the context, phases 2-2d's
+    """Phase 1 and the checks of phases 2, 2b, 3c and 3d on two cores,
+    while phase 5's CPU run (a cross-check, timed by nothing) and 6e's
+    `config --check` go on on the others from the start; then, the CPU
+    run near its end, 6a, the checks of 2c and 3b, 6e's reading and 2d
+    (in a thread of their own) beside phase 5's CUDA run (with 6b, 6d, 7b
+    and 7c) on every core, and the int16 probe on the CPU run's cores
+    from 6a on.  Returns the context, phases 2-2d's
     errors and the inputs of the timed phases (the probe's numbers among
     them)."""
     fg, bg = split_cores()
@@ -3862,35 +4078,35 @@ def checks_beside_cpu_run(work):
     with ThreadPoolExecutor(1) as pool:
         t5 = time.perf_counter()
         small, cpu_run = start_crosscheck(work, pool, bg)
+        config = start_config(work, bg)
         os.sched_setaffinity(0, fg)
         try:
             with span("phase 1"):
                 ctx = phase_env()
             inputs = {}
-            log(f"[phase 5] CPU run started on cores {sorted(bg)}; phases 1-3d's checks and phase 5 on CUDA "
-                f"run on cores {sorted(fg)}")
+            log(f"[phase 5] CPU run and 6e started on cores {sorted(bg)}; phases 1-3d's checks run on cores "
+                f"{sorted(fg)}")
             with span("phase 2"):
                 max_err = phase_exact(ctx)
             with span("phase 2b"):
                 max_err.update({f"banded.{k}": v for k, v in phase_banded_exact(ctx).items()})
-            with span("phase 2c"):
-                max_err.update(phase_dirbits_exact(ctx))
-            with span("phase 3b, checks"):
-                inputs["nw"] = phase_nw(ctx)
             with span("phase 3c, checks"):
                 inputs["phylo"] = phase_phylo(ctx)
             with span("phase 3d, checks"):
                 inputs["sw_bits"] = phase_sw_bits(ctx)
-            # 6a in process in a thread of its own, beside 6e and phase 5's
-            # CUDA run (subprocesses): the card's two cores are mostly
-            # waiting on launches, and the window is set by the slower side;
-            # the int16 probe on the cores of phase 5's CPU run, which has
-            # (nearly) ended
+            # the CPU run is near its end: phase 5's CUDA run and its sides take every core
+            os.sched_setaffinity(0, every_core)
+            # 6a in process in a thread of its own with 2c's and 3b's checks,
+            # 6e and 2d, beside phase 5's CUDA run (subprocesses): the card is
+            # mostly waiting on launches, and the window is set by the slower
+            # side; the int16 probe on the cores of phase 5's CPU run
             probe = start_probe(work, bg)
             with ThreadPoolExecutor(1) as side:
-                cascade = side.submit(phase_cascade_and_config, ctx, work)
+                beside = side.submit(phase_side, ctx, work, config)
                 phase_crosscheck(ctx, work, small, cpu_run, t5)
-                max_err.update(cascade.result())
+                with span("wait: 6a, 2c, 3b, 6e, 2d"):
+                    side_err, inputs["nw"] = beside.result()
+                    max_err.update(side_err)
             with span("int16 probe"):
                 inputs["probe"] = finish_probe(probe)
         except BaseException:
@@ -3944,10 +4160,12 @@ def main() -> int:
             phase_genetree(ctx, work)
         with span("phase 8a"):
             phase_prostt5(ctx, work)
+        # 9e's and 10f-i's ranks start up beside 8b and phase 9 (10f-i's beside 10a-10e too)
+        dist_ranks, cross_ranks = start_dist_check(), start_rank_cross(work)
         with span("phase 8b"):
             phase_prostt5_cross(ctx, work)
         with span("phase 9"):
-            sharded, cross_ranks = phase_multi_device(ctx, work, inputs["phylo"])
+            sharded = phase_multi_device(ctx, work, inputs["phylo"], dist_ranks)
         with span("phase 10"):
             phase_training(ctx, work, cross_ranks)
     finally:
@@ -4015,6 +4233,7 @@ def main() -> int:
         "ms": sharded["ms"], "plain_ms": sharded["plain_ms"], "bound_ms": sharded["bound_ms"],
         "bound_by": sharded["bound_by"], "library_ms": None,
     })
+    critical_path()
     log(f"total {clock():.1f} s ({ctx['smi']})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

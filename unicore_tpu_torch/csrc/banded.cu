@@ -566,6 +566,34 @@ int columns(int W, bool ungapped) {
 
 }  // namespace
 
+// Each set of instances (gapped with the bias, gapped without, ungapped)
+// sits behind a C entry of its own, so that the build can compile the
+// three as translation units of their own, at once (-DTU_PART=1..3,
+// ops/banded_cuda.py's PARTS); without TU_PART the file is one unit that
+// holds them all.  `a` is an Args of this file.
+extern "C" int banded_part_gapped_bias(const void* a, int C, void* st);
+extern "C" int banded_part_gapped(const void* a, int C, void* st);
+extern "C" int banded_part_ungapped(const void* a, int C, void* st);
+
+#if !defined(TU_PART) || TU_PART == 1
+extern "C" int banded_part_gapped_bias(const void* a, int C, void* st) {
+  return (int)by_columns<false, true>(*(const Args*)a, C, (cudaStream_t)st);
+}
+#endif
+#if !defined(TU_PART) || TU_PART == 2
+extern "C" int banded_part_gapped(const void* a, int C, void* st) {
+  return (int)by_columns<false, false>(*(const Args*)a, C, (cudaStream_t)st);
+}
+#endif
+#if !defined(TU_PART) || TU_PART == 3
+extern "C" int banded_part_ungapped(const void* a, int C, void* st) {
+  const Args& args = *(const Args*)a;
+  return (int)(args.qc != nullptr ? by_columns<true, true>(args, C, (cudaStream_t)st)
+                                  : by_columns<true, false>(args, C, (cudaStream_t)st));
+}
+#endif
+
+#if !defined(TU_PART) || TU_PART == 1
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // The E window spans the smallest power of two >= min(W, gap_window)
 // (W when gap_window is 0): the JAX log steps d = 1, 2, 4, ... < that.
@@ -585,13 +613,8 @@ extern "C" int banded_forward_launch(
   if (C <= 0) C = columns(W, ungapped != 0);
   const Args a{qa, qs, ta, ts, qlen, tlen, d0, qc, saa, s3d, go, ge, w_aa, w_3di,
                B, Lq, Lt, W, S, min(Lq, STAGE_ROWS), best, qend, tend};
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (ungapped)
-    e = qc != nullptr ? by_columns<true, true>(a, C, st) : by_columns<true, false>(a, C, st);
-  else
-    e = qc != nullptr ? by_columns<false, true>(a, C, st) : by_columns<false, false>(a, C, st);
-  return (int)e;
+  if (ungapped) return banded_part_ungapped(&a, C, stream);
+  return qc != nullptr ? banded_part_gapped_bias(&a, C, stream) : banded_part_gapped(&a, C, stream);
 }
 
 // The table's C for a band of W columns in a mode.
@@ -602,3 +625,4 @@ extern "C" int banded_forward_columns(int W, int ungapped) {
 // Widest band the kernel takes, and the rows it stages at a time.
 extern "C" int banded_forward_max_w() { return MAX_W; }
 extern "C" int banded_forward_stage_rows() { return STAGE_ROWS; }
+#endif

@@ -1306,6 +1306,38 @@ cudaError_t dispatch_i16(const I16Args& a, bool ungapped, cudaStream_t st) {
 
 }  // namespace
 
+// Each (number type, bias) set of instances sits behind a C entry of its
+// own, so that the build can compile the four as translation units of
+// their own, at once (-DTU_PART=1..4, ops/sw_cuda.py's SW_PARTS); without
+// TU_PART the file is one unit that holds them all.  `a` is an Args or an
+// I16Args of this file.
+extern "C" int sw_part_f32_bias(const void* a, int ungapped, void* st);
+extern "C" int sw_part_f32(const void* a, int ungapped, void* st);
+extern "C" int sw_part_i16_bias(const void* a, int ungapped, void* st);
+extern "C" int sw_part_i16(const void* a, int ungapped, void* st);
+
+#if !defined(TU_PART) || TU_PART == 1
+extern "C" int sw_part_f32_bias(const void* a, int ungapped, void* st) {
+  return (int)dispatch<DpF32, true>(*(const Args*)a, ungapped != 0, (cudaStream_t)st);
+}
+#endif
+#if !defined(TU_PART) || TU_PART == 2
+extern "C" int sw_part_f32(const void* a, int ungapped, void* st) {
+  return (int)dispatch<DpF32, false>(*(const Args*)a, ungapped != 0, (cudaStream_t)st);
+}
+#endif
+#if !defined(TU_PART) || TU_PART == 3
+extern "C" int sw_part_i16_bias(const void* a, int ungapped, void* st) {
+  return (int)dispatch_i16<true>(*(const I16Args*)a, ungapped != 0, (cudaStream_t)st);
+}
+#endif
+#if !defined(TU_PART) || TU_PART == 4
+extern "C" int sw_part_i16(const void* a, int ungapped, void* st) {
+  return (int)dispatch_i16<false>(*(const I16Args*)a, ungapped != 0, (cudaStream_t)st);
+}
+#endif
+
+#if !defined(TU_PART) || TU_PART == 1
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // The windowed prefix max spans the smallest power of two >= scan_limit
 // (the JAX log steps d = 1, 2, 4, ... < scan_limit).
@@ -1322,10 +1354,7 @@ extern "C" int sw_forward_launch(
   while (S < scan_limit && S < Lt) S <<= 1;
   const Args a{qa, qs, ta, ts, qlen, tlen, qc, saa, s3d, go, ge, w_aa, w_3di,
                B, Lq, Lt, S, 0, best, qend, tend};
-  cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t e = qc != nullptr ? dispatch<DpF32, true>(a, ungapped != 0, st)
-                                      : dispatch<DpF32, false>(a, ungapped != 0, st);
-  return (int)e;
+  return qc != nullptr ? sw_part_f32_bias(&a, ungapped, stream) : sw_part_f32(&a, ungapped, stream);
 }
 
 // The int16 instance (dp_dtype="i16"): go and ge are integers, and pad_v
@@ -1343,11 +1372,9 @@ extern "C" int sw_forward_i16_launch(
   while (S < scan_limit && S < Lt) S <<= 1;
   const I16Args a{qa, qs, ta, ts, qlen, tlen, qc, saa, s3d, go, ge, w_aa, w_3di, pad_v,
                   B, Lq, Lt, S, 0, best, qend, tend};
-  cudaStream_t st = (cudaStream_t)stream;
-  const cudaError_t e = qc != nullptr ? dispatch_i16<true>(a, ungapped != 0, st)
-                                      : dispatch_i16<false>(a, ungapped != 0, st);
-  return (int)e;
+  return qc != nullptr ? sw_part_i16_bias(&a, ungapped, stream) : sw_part_i16(&a, ungapped, stream);
 }
 
 // Largest target width the kernel takes.
 extern "C" int sw_forward_max_lt() { return MAX_LT; }
+#endif

@@ -9,7 +9,9 @@ version.  There is no fallback from one to the other.
 The kernel is compiled at first use by `nvcc` for sm_90a with
 ops/sw_cuda.py's flags (`sw_cuda.build_library`) into a shared library
 with a plain C interface under `build/unicore_tpu_torch/`, keyed by a hash
-of the source and the flags, and loaded with ctypes.  It takes bands of up
+of the source and the flags, as three translation units (gapped with and
+without the bias, ungapped) by three nvcc processes at once (`PARTS`), and
+loaded with ctypes.  It takes bands of up
 to MAX_W columns, and any Lq and Lt: it stages the codes of STAGE_ROWS rows
 at a time in shared memory, one pair a block.  `columns_of` reads the
 kernel's table of columns a lane (C) per band width;
@@ -38,6 +40,7 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "banded.cu"
 MAX_W = 8192  # banded.cu: MAX_W
 STAGE_ROWS = 2048  # banded.cu: STAGE_ROWS
 MAX_THREADS = 512  # banded.cu: MAXT, threads a block
+PARTS = 3  # banded.cu's translation units (its TU_PART values), built at once
 COLUMNS = (1, 2, 4, 8, 16)  # the kernel's columns a lane (C)
 
 LAUNCHES: Dict[str, int] = {"gapped": 0, "ungapped": 0}
@@ -75,7 +78,7 @@ def load() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        so = sw_cuda.build_library(source=SOURCE)
+        so = sw_cuda.build_library(source=SOURCE, parts=PARTS)
         lib = bind(so)
         if (lib.banded_forward_max_w(), lib.banded_forward_stage_rows()) != (MAX_W, STAGE_ROWS):
             raise RuntimeError(f"{so}: kernel takes W <= {lib.banded_forward_max_w()} and stages "

@@ -11,7 +11,10 @@ plain int16 DP (`ops/sw.py::sw_forward_i16`), after the int16 contract
 The kernel is compiled at first use by `nvcc` for sm_90a into a shared
 library with a plain C interface, loaded with ctypes, and cached under
 `build/unicore_tpu_torch/` beside the package, keyed by a hash of the
-source and the flags.  The module imports without a CUDA
+source and the flags; its four sets of instances (float32 and int16,
+each with and without the bias) compile as translation units of their
+own, by four nvcc processes at once (`SW_PARTS`).  The module imports
+without a CUDA
 toolkit; only the first launch needs one.
 
 `sw_forward_sharded` runs a pair batch data-parallel over a device mesh
@@ -35,6 +38,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -53,6 +57,7 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 MAX_LT = 4096  # sw.cu: MAX_PAIR_WARPS * 32 * MAX_C
+SW_PARTS = 4  # sw.cu's translation units (its TU_PART values), built at once
 
 LAUNCHES: Dict[str, int] = {"gapped": 0, "ungapped": 0}
 # launches made through sw_forward_sharded (also counted in LAUNCHES)
@@ -82,20 +87,39 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME): the SW kernel cannot be built")
 
 
-def build_library(source: Path = SOURCE, flags: Tuple[str, ...] = NVCC_FLAGS) -> Path:
+def _run_nvcc(args) -> None:
+    res = subprocess.run([_nvcc(), *args], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+
+
+def build_library(source: Path = SOURCE, flags: Tuple[str, ...] = NVCC_FLAGS, parts: int = 1) -> Path:
     """Compile `source` with nvcc into a shared library under BUILD_DIR,
-    named by the source's stem and a hash of the source and the flags;
-    returns its path (an existing build is reused)."""
-    digest = hashlib.sha256(Path(source).read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
+    named by the source's stem and a hash of the source, the flags and
+    `parts`; returns its path (an existing build is reused).  With parts
+    > 1 the source is compiled as that many translation units, -DTU_PART=1
+    .. parts, by as many nvcc processes at once, and their objects linked
+    into the library: a source that reads TU_PART builds each of its
+    instances in one of them."""
+    key = Path(source).read_bytes() + " ".join(flags).encode() + (f" parts={parts}".encode() if parts > 1 else b"")
+    so = BUILD_DIR / f"lib{Path(source).stem}_{hashlib.sha256(key).hexdigest()[:16]}.so"
     if not so.exists():
         so.parent.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
         os.close(fd)
-        res = subprocess.run([_nvcc(), *flags, "-o", tmp, str(source)], capture_output=True, text=True)
-        if res.returncode != 0:
+        try:
+            if parts == 1:
+                _run_nvcc([*flags, "-o", tmp, str(source)])
+            else:
+                with tempfile.TemporaryDirectory(dir=so.parent) as objs, ThreadPoolExecutor(parts) as pool:
+                    compile_flags = [f for f in flags if f != "-shared"]
+                    names = [os.path.join(objs, f"part{k}.o") for k in range(1, parts + 1)]
+                    list(pool.map(lambda k: _run_nvcc([*compile_flags, f"-DTU_PART={k}", "-c", "-o",
+                                                       names[k - 1], str(source)]), range(1, parts + 1)))
+                    _run_nvcc([*flags, "-o", tmp, *names])
+        except BaseException:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+            raise
         os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
     return so
 
@@ -128,7 +152,7 @@ def load() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        so = build_library()
+        so = build_library(parts=SW_PARTS)
         lib = bind(so)
         if lib.sw_forward_max_lt() != MAX_LT:
             raise RuntimeError(f"{so}: kernel takes Lt <= {lib.sw_forward_max_lt()}, "
