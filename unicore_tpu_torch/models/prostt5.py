@@ -84,6 +84,7 @@ TOK_EOS = 22      # </s>
 TOK_PAD = 23      # <pad>
 
 ATTN_CHUNK_BYTES = 1 << 30  # float32 scores per attention chunk of batch rows
+_TDI = np.frombuffer(TDI_ALPHABET.encode(), dtype=np.uint8)  # class index -> 3Di letter
 
 
 @dataclass(frozen=True)
@@ -415,7 +416,9 @@ def _rel_bucket(rel_pos: torch.Tensor, n_buckets: int = 32, max_dist: int = 128)
 @functools.lru_cache(maxsize=16)
 def _offset_buckets(L: int, n_buckets: int, max_dist: int) -> torch.Tensor:
     """(2L - 1,) int64 bucket of each offset key - query from -(L - 1) to
-    L - 1, computed on the host's CPU."""
+    L - 1, computed on the host's CPU.  Runs only where the cache misses:
+    `prostt5.bias_table.builds` counts those runs."""
+    profiling.add_counter("prostt5.bias_table.builds", 1)
     rel = torch.arange(-(L - 1), L, dtype=torch.int64)
     return _rel_bucket(rel, n_buckets, max_dist).to(torch.int64)
 
@@ -485,7 +488,8 @@ def self_attention(h, wq, wk, wv, wo, d_kv: int, bias_mask):
     share of the whole sublayer's output."""
     B, L, _ = h.shape
     q, k, v = (F.linear(h, w).view(B, L, -1, d_kv).transpose(1, 2) for w in (wq, wk, wv))
-    ctx = _attention(q, k, v, bias_mask)
+    with profiling.span("prostt5.attention", device=q.is_cuda):
+        ctx = _attention(q, k, v, bias_mask)
     return F.linear(ctx.transpose(1, 2).reshape(B, L, -1), wo)
 
 
@@ -534,7 +538,8 @@ def relative_bias_mask(rel_bias, mask, cfg: T5Config):
     """(B, H, L, L) float32 relative bias plus the -1e9 key mask, shared
     by the blocks, of the (buckets, H) `rel_bias` weight (all heads, or
     a slice of them) and the (B, L) bool `mask`."""
-    buckets = _bucket_table(mask.shape[1], cfg.rel_buckets, cfg.rel_max_dist, mask.device)
+    with profiling.span("prostt5.bias_table"):
+        buckets = _bucket_table(mask.shape[1], cfg.rel_buckets, cfg.rel_max_dist, mask.device)
     # (1, H, L, L), contiguous: the sum below takes its layout, and
     # the scores' in-place add wants it to match theirs
     bias = rel_bias[buckets].permute(2, 0, 1).float().contiguous()[None]
@@ -669,18 +674,80 @@ def frame_batch(sequences: List[str], L: int, multiple: int = 8):
     """(tokens, mask) numpy arrays of `sequences` framed
     ``[<AA2fold>, residues..., </s>]`` in rows of length L, the batch
     padded to a multiple of `multiple` rows."""
-    B = len(sequences)
-    Bp = ((B + multiple - 1) // multiple) * multiple
-    toks = np.full((Bp, L), TOK_PAD, dtype=np.int64)
-    mask = np.zeros((Bp, L), dtype=bool)
-    for r, s in enumerate(sequences):
-        codes = encode_aa(s)
-        n = len(codes)
-        toks[r, 0] = TOK_PREFIX
-        toks[r, 1 : n + 1] = codes
-        toks[r, n + 1] = TOK_EOS
-        mask[r, : n + 2] = True
-    return toks, mask
+    with profiling.span("prostt5.frame"):
+        B = len(sequences)
+        Bp = ((B + multiple - 1) // multiple) * multiple
+        toks = np.full((Bp, L), TOK_PAD, dtype=np.int64)
+        mask = np.zeros((Bp, L), dtype=bool)
+        for r, s in enumerate(sequences):
+            codes = encode_aa(s)
+            n = len(codes)
+            toks[r, 0] = TOK_PREFIX
+            toks[r, 1 : n + 1] = codes
+            toks[r, n + 1] = TOK_EOS
+            mask[r, : n + 2] = True
+        return toks, mask
+
+
+def _copy_in(toks: np.ndarray, mask: np.ndarray, device) -> tuple:
+    """A framed batch's tokens and mask on `device`."""
+    with profiling.span("prostt5.copy_in"):
+        return torch.from_numpy(toks).to(device), torch.from_numpy(mask).to(device)
+
+
+def _copy_out(codes: torch.Tensor) -> np.ndarray:
+    """A batch's codes on the host: the host waits here for the batch's
+    forward to end on the device."""
+    with profiling.span("prostt5.copy_out"):
+        return codes.cpu().numpy()
+
+
+def _decode(codes3: np.ndarray, chunk: List[int], sequences: List[str], out: List[Optional[str]]) -> None:
+    """Each row's 3Di letters, read back at its residue positions, into
+    `out` at the row's unit index `chunk[r]`."""
+    with profiling.span("prostt5.decode"):
+        for r, j in enumerate(chunk):
+            out[j] = _TDI[codes3[r, 1 : len(sequences[j]) + 1]].tobytes().decode()
+
+
+def _cut_windows(sequences: List[str], W: int, V: int) -> List[tuple]:
+    """(index, start, residues) of the units `sequences` are read in:
+    each sequence up to W whole, longer ones in W-wide windows
+    overlapping by V, the last one ending at the sequence's end."""
+    with profiling.span("prostt5.stitch"):
+        pieces: List[tuple] = []
+        for idx, s in enumerate(sequences):
+            if len(s) <= W:
+                pieces.append((idx, 0, s))
+                continue
+            starts = list(range(0, len(s) - W + 1, W - V))
+            if starts[-1] + W < len(s):
+                starts.append(len(s) - W)
+            for st in starts:
+                pieces.append((idx, st, s[st : st + W]))
+        return pieces
+
+
+def _stitch(sequences: List[str], pieces: List[tuple], piece_3di: List[str], W: int, V: int) -> List[str]:
+    """The 3Di string of each sequence from its units' letters: a window
+    owns its residues from the previous window's end less V / 2."""
+    with profiling.span("prostt5.stitch"):
+        out: List[Optional[str]] = [None] * len(sequences)
+        chars: Dict[int, list] = {}
+        bounds: Dict[int, int] = {}  # orig_idx -> end of previously owned region
+        for (idx, st, aa_piece), di in zip(pieces, piece_3di):
+            if len(sequences[idx]) <= W:
+                out[idx] = di
+                continue
+            buf = chars.setdefault(idx, ["X"] * len(sequences[idx]))
+            own_from = bounds.get(idx, 0)          # midpoint handoff
+            own_to = st + len(aa_piece)
+            for pos in range(max(own_from, st), own_to):
+                buf[pos] = di[pos - st]
+            bounds[idx] = st + len(aa_piece) - V // 2
+        for idx, buf in chars.items():
+            out[idx] = "".join(buf)
+        return out  # type: ignore[return-value]
 
 
 class ProstT5Engine:
@@ -689,8 +756,20 @@ class ProstT5Engine:
 
     Counters (runtime/profiling): `prostt5.load.seconds`,
     `prostt5.batches`, `prostt5.residues`, `prostt5.padded_tokens`,
-    `prostt5.predict.seconds` and, on CUDA, `prostt5.peak_bytes` (the
-    device's peak allocation in this process, as torch counts it)."""
+    `prostt5.shape.<B>x<L>.batches` (batches of B padded rows at bucket
+    length L), `prostt5.predict.seconds`, `prostt5.bias_table.builds`
+    and, on CUDA, `prostt5.peak_bytes` (the device's peak allocation in
+    this process, as torch counts it).
+
+    Spans (runtime/profiling.span, recorded while a profiler records),
+    each phase a function of its own: `prostt5.stitch` (cutting windows,
+    then stitching them, twice a `predict`), `prostt5.fill` (a bucket's
+    batch), `prostt5.frame`, `prostt5.copy_in`, `prostt5.forward` (on
+    the device clock too), `prostt5.copy_out` (the host waits there),
+    `prostt5.decode`, and inside the model `prostt5.bias_table` and
+    `prostt5.attention` (on the device clock too, once a layer).  On a
+    card `prostt5.between_batches.device_seconds` is the device-clock
+    time from one batch's forward to the next one's within a call."""
 
     name = "prostt5-torch"
 
@@ -754,69 +833,55 @@ class ProstT5Engine:
         is stitched with ownership switching at overlap midpoints
         (deterministic; windows see `overlap/2` residues of flanking
         context at every owned position)."""
-        W, V = self.max_window, self.overlap
-        pieces: List[tuple] = []  # (orig_idx, start, aa_piece)
-        for idx, s in enumerate(sequences):
-            if len(s) <= W:
-                pieces.append((idx, 0, s))
-                continue
-            step = W - V
-            starts = list(range(0, max(len(s) - W, 0) + 1, step))
-            if starts[-1] + W < len(s):
-                starts.append(len(s) - W)
-            for st in starts:
-                pieces.append((idx, st, s[st : st + W]))
+        pieces = _cut_windows(sequences, self.max_window, self.overlap)
         piece_3di = self._predict_units([p[2] for p in pieces])
+        return _stitch(sequences, pieces, piece_3di, self.max_window, self.overlap)
 
-        out: List[Optional[str]] = [None] * len(sequences)
-        chars: Dict[int, list] = {}
-        bounds: Dict[int, int] = {}  # orig_idx -> end of previously owned region
-        for (idx, st, aa_piece), di in zip(pieces, piece_3di):
-            if len(sequences[idx]) <= W:
-                out[idx] = di
-                continue
-            buf = chars.setdefault(idx, ["X"] * len(sequences[idx]))
-            own_from = bounds.get(idx, 0)          # midpoint handoff
-            own_to = st + len(aa_piece)
-            for pos in range(max(own_from, st), own_to):
-                buf[pos] = di[pos - st]
-            bounds[idx] = st + len(aa_piece) - V // 2
-        for idx, buf in chars.items():
-            out[idx] = "".join(buf)
-        return out  # type: ignore[return-value]
+    def _fill(self, sequences: List[str], order: List[int], i: int) -> tuple:
+        """(units, L) of the batch that starts at `order[i]`: the bucket of
+        its framed length L (prefix + residues + eos) and at most
+        batch_tokens // L units (8 to 512), all within that bucket."""
+        with profiling.span("prostt5.fill"):
+            L = _bucket_len(len(sequences[order[i]]) + 2)
+            bs = max(8, min(512, self.batch_tokens // L))
+            return [j for j in order[i : i + bs] if len(sequences[j]) + 2 <= L], L
 
     def _predict_units(self, sequences: List[str]) -> List[str]:
         """Single-window batched forward (each unit framed
         ``[<AA2fold>, residues..., </s>]``, ProstT5's AA->fold direction);
         3Di letters are read back at the residue positions."""
-        tdi = np.frombuffer(TDI_ALPHABET.encode(), dtype=np.uint8)
         out: List[Optional[str]] = [None] * len(sequences)
         n_dev, sharded_predict = self._dp_setup()
+        cuda = self.device.type == "cuda"
         order = sorted(range(len(sequences)), key=lambda i: len(sequences[i]))
+        between = profiling.DeviceGap("prostt5.between_batches")
         t0 = time.perf_counter()
         i = 0
         while i < len(order):
-            # bucket on the framed length (prefix + residues + eos)
-            L = _bucket_len(len(sequences[order[i]]) + 2)
-            bs = max(8, min(512, self.batch_tokens // L))
-            chunk = order[i : i + bs]
-            # keep the chunk within this length bucket
-            chunk = [j for j in chunk if len(sequences[j]) + 2 <= L]
+            chunk, L = self._fill(sequences, order, i)
             i += len(chunk)
             toks, mask = frame_batch([sequences[j] for j in chunk], L, 8 * n_dev)
             if sharded_predict is not None:
-                codes3 = sharded_predict(toks, mask)
+                with profiling.span("prostt5.forward", device=cuda):
+                    codes3 = sharded_predict(toks, mask)
             else:
-                codes3 = predict_3di_codes(self.model, torch.from_numpy(toks).to(self.device),
-                                           torch.from_numpy(mask).to(self.device)).cpu().numpy()
-            for r, j in enumerate(chunk):
-                n = len(sequences[j])
-                out[j] = tdi[codes3[r, 1 : n + 1]].tobytes().decode()
+                tokens, m = _copy_in(toks, mask, self.device)
+                between.before()
+                with profiling.span("prostt5.forward", device=cuda):
+                    codes = predict_3di_codes(self.model, tokens, m)
+                between.after(cuda)
+                # the last batch's spans, which its copy out waited for,
+                # read while the device runs this one
+                profiling.read_device_spans()
+                codes3 = _copy_out(codes)
+            _decode(codes3, chunk, sequences, out)
             profiling.add_counter("prostt5.batches", 1)
             profiling.add_counter("prostt5.residues", sum(len(sequences[j]) for j in chunk))
             profiling.add_counter("prostt5.padded_tokens", toks.size)
+            profiling.add_counter(f"prostt5.shape.{toks.shape[0]}x{L}.batches", 1)
+        profiling.read_device_spans()
         profiling.add_counter("prostt5.predict.seconds", time.perf_counter() - t0)
-        if self.device.type == "cuda":
+        if cuda:
             profiling.set_counter("prostt5.peak_bytes", torch.cuda.max_memory_allocated(self.device))
         return out  # type: ignore[return-value]
 
